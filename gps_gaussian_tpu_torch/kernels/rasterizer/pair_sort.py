@@ -1,0 +1,170 @@
+"""Tile binning, the (tile | depth) pair sort and the sorted render driver.
+
+Counterpart of the legacy uniform-K path of
+gps_gaussian_tpu/kernels/rasterizer/pallas_kernel.py: `stack_rows` :102,
+`tile_rects` :120, `expand_rect_offsets` :147, `pack_sort_key` :210, the
+forward of `_pair_sort` :251/:275 and `render_sorted` :1081. The composite
+itself is `composite.composite_fwd` (the CUDA kernel on the GPU).
+
+Differences from the JAX code, none of which changes a result:
+* tile ids, keys, `start` and `count` stay integers end to end (JAX carries
+  tile ids through f32, exact only below 2^24);
+* torch has no multi-operand sort, so one stable sort of the packed i32 key
+  gives the permutation and the 9 property rows are gathered by it; ties
+  keep slot order (Gaussian, duplicate k) as JAX's stable sort does;
+* pairs are laid out (9, P) structure-of-arrays, not (chunks, 16, 128).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gps_gaussian_tpu_torch.kernels.rasterizer.composite import (
+    TILE, composite_fwd)
+
+NPROP = 9     # kernel property columns: mx my ca cb cc op r g b
+STACKW = 11   # + depth (9) and radius (10), which feed binning only
+CHUNK = 128   # JAX rounds the pair budget up to whole 128-pair chunks
+
+
+def stack_rows(mean2d, conic, opacity, color, depth, radius):
+    """Per-Gaussian properties as (N, 11) rows: columns 0..8 feed the
+    composite, 9 = depth and 10 = radius feed the binning."""
+    n = mean2d.shape[0]
+    return torch.cat([mean2d, conic, opacity.reshape(n, 1), color,
+                      depth.reshape(n, 1), radius.reshape(n, 1)], dim=1)
+
+
+def tile_rects(mean2d, radius, tiles_y: int, tiles_x: int, tile: int,
+               max_tiles: int):
+    """Exclusive-max tile rectangle per Gaussian, clamped (CUDA getRect).
+
+    Returns (x_min, y_min, span_x, total_capped, total_uncapped), int32;
+    the totals are 0 for culled Gaussians."""
+    def edge(v, hi):
+        return torch.clamp(torch.floor(v / tile), 0, hi).to(torch.int32)
+
+    x_min = edge(mean2d[:, 0] - radius, tiles_x)
+    x_max = edge(mean2d[:, 0] + radius + tile - 1, tiles_x)
+    y_min = edge(mean2d[:, 1] - radius, tiles_y)
+    y_max = edge(mean2d[:, 1] + radius + tile - 1, tiles_y)
+    span_x = x_max - x_min
+    total = torch.where(radius > 0.0, span_x * (y_max - y_min), 0)
+    return x_min, y_min, span_x, torch.clamp_max(total, max_tiles), total
+
+
+def expand_rect_offsets(span_x, max_tiles: int):
+    """(dx, dy) tile offsets of duplicate k = dy * span_x + dx, each
+    (N, max_tiles). span_x must be >= 1."""
+    k = torch.arange(max_tiles, dtype=torch.int32, device=span_x.device)
+    span = span_x[:, None]
+    dy = torch.div(k[None, :], span, rounding_mode="floor")
+    return k[None, :] - dy * span, dy
+
+
+def pack_sort_key(tile_i, depth, total_tiles: int):
+    """(tile, depth) packed into ONE i32 key, exactly as JAX packs it.
+
+    Depth is quantized to the qbits = 31 - bit_length(total_tiles + 1) bits
+    under the tile id, over [dmin, dmax] of the LIVE pairs, and clamped in
+    integers. Dead pairs carry the sentinel tile `total_tiles` and sort
+    last. Returns (key, qbits)."""
+    qbits = 31 - int(total_tiles + 1).bit_length()
+    if qbits < 12:
+        raise ValueError(
+            f"pack_sort_key: only {qbits} depth bits left under "
+            f"{total_tiles} tile ids (batch * tiles too large for the packed "
+            f"i32 sort key); shrink the batch")
+    live = tile_i < total_tiles
+    dmin = torch.where(live, depth, torch.inf).min()
+    dmin = torch.where(torch.isfinite(dmin), dmin, 0.0)
+    dmax = torch.where(live, depth, -torch.inf).max()
+    dmax = torch.where(torch.isfinite(dmax), dmax, 1.0)
+    dd = torch.where(live, depth, dmin)
+    levels = torch.tensor(2.0 ** qbits - 1.0, dtype=torch.float32,
+                          device=depth.device)
+    scale = levels / torch.clamp_min(dmax - dmin, 1e-20)
+    qd = torch.clamp(torch.clamp_min((dd - dmin) * scale, 0.0)
+                     .to(torch.int32), 0, (1 << qbits) - 1)
+    return tile_i * (1 << qbits) + qd, qbits
+
+
+def sort_pairs(stacked, height: int, width: int, max_tiles: int,
+               max_per_tile: int, pair_budget):
+    """Duplicate each Gaussian into its tiles and sort by (tile, depth).
+
+    stacked: (B, C, 11) rows from `stack_rows`. The whole batch shares one
+    sort, tile ids offset by b * tiles per sample.
+    Returns (props (9, P) f32, start (B*T,) i32, count (B*T,) i32,
+    num_dup_dropped (B,), num_pair_dropped (B,)), with the counters int64:
+    pairs lost to the duplication cap, and to max_per_tile / pair_budget.
+    """
+    batch, n = stacked.shape[0], stacked.shape[1]
+    dev = stacked.device
+    tiles_y, tiles_x = -(-height // TILE), -(-width // TILE)
+    num_tiles = tiles_y * tiles_x
+    flat = stacked.reshape(batch * n, STACKW)
+
+    x_min, y_min, span_x, total, total_uncapped = tile_rects(
+        flat[:, 0:2], flat[:, 10], tiles_y, tiles_x, TILE, max_tiles)
+    num_dropped = (total_uncapped - total).reshape(batch, n).sum(1)
+
+    dx, dy = expand_rect_offsets(torch.clamp_min(span_x, 1), max_tiles)
+    k = torch.arange(max_tiles, dtype=torch.int32, device=dev)
+    pair_live = k[None, :] < total[:, None]
+    tile_id = (y_min[:, None] + dy) * tiles_x + (x_min[:, None] + dx)
+    boff = torch.arange(batch, dtype=torch.int32, device=dev) * num_tiles
+    tile_id = tile_id + boff.repeat_interleave(n)[:, None]
+    tile_id = torch.where(pair_live, tile_id, batch * num_tiles)
+
+    nK = batch * n * max_tiles
+    p_lim = nK if pair_budget is None else min(batch * int(pair_budget), nK)
+    P = -(-p_lim // CHUNK) * CHUNK
+
+    depth_b = flat[:, 9:10].expand(-1, max_tiles).reshape(-1)
+    key, qbits = pack_sort_key(tile_id.reshape(-1), depth_b,
+                               batch * num_tiles)
+    key_s, perm = torch.sort(key, stable=True)
+
+    marks = torch.arange(batch * num_tiles + 1, dtype=torch.int32,
+                         device=dev) * (1 << qbits)
+    bounds = torch.searchsorted(key_s, marks)
+    start = torch.clamp_max(bounds[:-1], P)
+    end = torch.clamp_max(bounds[1:], P)
+    count = torch.clamp_max(end - start, max_per_tile)
+
+    gauss = perm[:min(P, nK)] // max_tiles
+    props = flat[gauss, :NPROP].t().contiguous()
+    num_pair_dropped = (total.reshape(batch, n).sum(1)
+                        - count.reshape(batch, num_tiles).sum(1))
+    return (props, start.to(torch.int32), count.to(torch.int32),
+            num_dropped, num_pair_dropped)
+
+
+def untile(x, batch: int, height: int, width: int):
+    """(B*T, 256, C) tile-major pixels -> (B, H, W, C)."""
+    tiles_y, tiles_x = -(-height // TILE), -(-width // TILE)
+    ch = x.shape[-1]
+    x = x.reshape(batch, tiles_y, tiles_x, TILE, TILE, ch)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(batch, tiles_y * TILE, tiles_x * TILE,
+                     ch)[:, :height, :width]
+
+
+def render_sorted(stacked, height: int, width: int, max_tiles: int,
+                  max_per_tile: int, pair_budget, bg_color):
+    """(B, C, 11) stacked rows -> (image (B, H, W, 3), transmittance
+    (B, H, W, 1), num_dup_dropped (B,), num_pair_dropped (B,)).
+
+    pair_budget is per sample; when it binds, truncation falls on the
+    globally last sorted pairs (the highest batch indices' deepest tiles),
+    and the drops are counted per sample either way."""
+    batch = stacked.shape[0]
+    tiles_y, tiles_x = -(-height // TILE), -(-width // TILE)
+    props, start, count, num_dropped, num_pair_dropped = sort_pairs(
+        stacked, height, width, max_tiles, max_per_tile, pair_budget)
+    out = composite_fwd(props, start, count, tiles_y, tiles_x)
+    img_tiles = out[..., 0:3] + out[..., 3:4] * bg_color[None, None, :]
+    return (untile(img_tiles, batch, height, width),
+            untile(out[..., 3:4], batch, height, width),
+            num_dropped, num_pair_dropped)

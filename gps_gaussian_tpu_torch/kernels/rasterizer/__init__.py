@@ -1,11 +1,13 @@
-"""Tile-binned Gaussian-splat rasterizer, forward (public API).
+"""Differentiable tile-binned Gaussian-splat rasterizer (public API).
 
 Counterpart of gps_gaussian_tpu/kernels/rasterizer/__init__.py on its
 Pallas route with the legacy uniform-K binning: optional foreground
 compaction, EWA projection, one (tile | depth) pair sort for the whole
-batch, then the tiled composite (`composite.composite_fwd`: the CUDA kernel
-on the GPU, its plain version on the CPU). Capacities are static and every
-drop is counted in `RasterizeAux`, never silent.
+batch, then the tiled composite (`composite.composite`: the CUDA kernels on
+the GPU, their plain versions on the CPU). Capacities are static and every
+drop is counted in `RasterizeAux`, never silent. Gradients flow to xyz,
+rot, scale, opacity and rgb; the sort order and the tile rectangles are
+treated as fixed, and culled or invalid rows get exactly zero.
 """
 
 from __future__ import annotations
@@ -44,6 +46,34 @@ class RasterizeAux(NamedTuple):
                                     # pair_budget
 
 
+class _TakeRowsUnique(torch.autograd.Function):
+    """x[idx] for UNIQUE row indices, with a copy as its backward.
+
+    Counterpart of `take_rows_unique` (pallas_kernel.py:72-99). Autograd's
+    own backward of x[idx] is index_put with accumulation, which on CUDA
+    adds with float atomics; the indices are unique, so a plain row copy
+    into zeros gives the same gradient with the same bits every run."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = x.shape[0]
+        return x[idx]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        out = g.new_zeros((ctx.rows,) + tuple(g.shape[1:]))
+        out.index_copy_(0, idx, g)
+        return out, None
+
+
+def take_rows_unique(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather x[idx]; `idx` (int64) must hold no index twice."""
+    return _TakeRowsUnique.apply(x, idx)
+
+
 def compact_gaussian_inputs(g: FlatGaussians, b: int, cap: int):
     """Pack sample b's valid Gaussians into the first `cap` rows.
 
@@ -65,7 +95,8 @@ def compact_gaussian_inputs(g: FlatGaussians, b: int, cap: int):
         out = tuple(torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
                     for x in fields)
         return out + (live,), n_dropped
-    out = tuple(x.float()[idx] * live[:, None] for x in fields)
+    out = tuple(take_rows_unique(x.float(), idx) * live[:, None]
+                for x in fields)
     return out + (live,), n_dropped
 
 
@@ -74,8 +105,9 @@ def rasterize(gaussians: FlatGaussians, camera: NovelCamera, bg_color,
     """Batched render: (B, N) Gaussians into (B,) cameras.
 
     Runs on `device` (CUDA unless the caller asks for the CPU); inputs are
-    moved there. Returns (images (B, H, W, 3), RasterizeAux with per-sample
-    counters (B,) and transmittance (B, H, W, 1)).
+    moved there. Differentiable with respect to the Gaussians' xyz, rot,
+    scale, opacity and rgb. Returns (images (B, H, W, 3), RasterizeAux with
+    per-sample counters (B,) and transmittance (B, H, W, 1)).
     """
     dev = resolve_device(device)
     gaussians = gaussians.to(dev)

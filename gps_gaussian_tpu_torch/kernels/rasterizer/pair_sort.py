@@ -2,9 +2,10 @@
 
 Counterpart of the legacy uniform-K path of
 gps_gaussian_tpu/kernels/rasterizer/pallas_kernel.py: `stack_rows` :102,
-`tile_rects` :120, `expand_rect_offsets` :147, `pack_sort_key` :210, the
-forward of `_pair_sort` :251/:275 and `render_sorted` :1081. The composite
-itself is `composite.composite_fwd` (the CUDA kernel on the GPU).
+`tile_rects` :120, `expand_rect_offsets` :147, `pack_sort_key` :210,
+`_pair_sort` :251/:275 with its backward `_pair_sort_bwd` :322, and
+`render_sorted` :1081. The composite itself is `composite.composite` (the
+CUDA kernels on the GPU, forward and backward).
 
 Differences from the JAX code, none of which changes a result:
 * tile ids, keys, `start` and `count` stay integers end to end (JAX carries
@@ -12,15 +13,19 @@ Differences from the JAX code, none of which changes a result:
 * torch has no multi-operand sort, so one stable sort of the packed i32 key
   gives the permutation and the 9 property rows are gathered by it; ties
   keep slot order (Gaussian, duplicate k) as JAX's stable sort does;
-* pairs are laid out (9, P) structure-of-arrays, not (chunks, 16, 128).
+* pairs are laid out (9, P) structure-of-arrays, not (chunks, 16, 128);
+* the backward un-sorts pair gradients with a unique-index copy at the kept
+  permutation, where JAX sorts a second time by slot id (sorts are the cheap
+  primitive on a TPU, scattered copies on a GPU); both then sum each
+  Gaussian's K duplicates in slot order.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gps_gaussian_tpu_torch.kernels.rasterizer.composite import (
-    TILE, composite_fwd)
+from gps_gaussian_tpu_torch.kernels.rasterizer.composite import (TILE,
+                                                                 composite)
 
 NPROP = 9     # kernel property columns: mx my ca cb cc op r g b
 STACKW = 11   # + depth (9) and radius (10), which feed binning only
@@ -89,6 +94,35 @@ def pack_sort_key(tile_i, depth, total_tiles: int):
     return tile_i * (1 << qbits) + qd, qbits
 
 
+class _GatherPairs(torch.autograd.Function):
+    """Sorted pair columns from per-Gaussian rows: pair p takes columns
+    0..8 of row slot[p] // K, where slot = the kept head of the sort's
+    permutation of the n * K (Gaussian, duplicate) slots.
+
+    The backward is the counterpart of `_pair_sort_bwd` (:322): the pair
+    gradients go back to their pre-sort slots with a copy (the slots are
+    unique, so nothing accumulates and no atomics run), then each
+    Gaussian's K duplicates are summed in slot order. Two runs give the same
+    bits, which autograd's index_put backward of `flat[gauss]` does not."""
+
+    @staticmethod
+    def forward(ctx, flat, slot, max_tiles: int):
+        ctx.save_for_backward(slot)
+        ctx.shape = (flat.shape[0], max_tiles)
+        return flat[slot // max_tiles, :NPROP].t().contiguous()
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_props):
+        (slot,) = ctx.saved_tensors
+        n, k = ctx.shape
+        buf = g_props.new_zeros((NPROP, n * k))
+        buf.index_copy_(1, slot, g_props)
+        g_flat = g_props.new_zeros((n, STACKW))
+        g_flat[:, :NPROP] = buf.reshape(NPROP, n, k).sum(dim=2).t()
+        return g_flat, None, None
+
+
 def sort_pairs(stacked, height: int, width: int, max_tiles: int,
                max_per_tile: int, pair_budget):
     """Duplicate each Gaussian into its tiles and sort by (tile, depth).
@@ -98,12 +132,16 @@ def sort_pairs(stacked, height: int, width: int, max_tiles: int,
     Returns (props (9, P) f32, start (B*T,) i32, count (B*T,) i32,
     num_dup_dropped (B,), num_pair_dropped (B,)), with the counters int64:
     pairs lost to the duplication cap, and to max_per_tile / pair_budget.
+    `props` is differentiable with respect to columns 0..8 of `stacked`;
+    the binning keys (mean2d and radius for the rectangles, depth for the
+    order) are positional and carry no gradient.
     """
     batch, n = stacked.shape[0], stacked.shape[1]
     dev = stacked.device
     tiles_y, tiles_x = -(-height // TILE), -(-width // TILE)
     num_tiles = tiles_y * tiles_x
-    flat = stacked.reshape(batch * n, STACKW)
+    rows = stacked.reshape(batch * n, STACKW)
+    flat = rows.detach()
 
     x_min, y_min, span_x, total, total_uncapped = tile_rects(
         flat[:, 0:2], flat[:, 10], tiles_y, tiles_x, TILE, max_tiles)
@@ -133,8 +171,7 @@ def sort_pairs(stacked, height: int, width: int, max_tiles: int,
     end = torch.clamp_max(bounds[1:], P)
     count = torch.clamp_max(end - start, max_per_tile)
 
-    gauss = perm[:min(P, nK)] // max_tiles
-    props = flat[gauss, :NPROP].t().contiguous()
+    props = _GatherPairs.apply(rows, perm[:min(P, nK)], max_tiles)
     num_pair_dropped = (total.reshape(batch, n).sum(1)
                         - count.reshape(batch, num_tiles).sum(1))
     return (props, start.to(torch.int32), count.to(torch.int32),
@@ -158,12 +195,13 @@ def render_sorted(stacked, height: int, width: int, max_tiles: int,
 
     pair_budget is per sample; when it binds, truncation falls on the
     globally last sorted pairs (the highest batch indices' deepest tiles),
-    and the drops are counted per sample either way."""
+    and the drops are counted per sample either way. Differentiable with
+    respect to columns 0..8 of `stacked` (`sort_pairs`, `composite`)."""
     batch = stacked.shape[0]
     tiles_y, tiles_x = -(-height // TILE), -(-width // TILE)
     props, start, count, num_dropped, num_pair_dropped = sort_pairs(
         stacked, height, width, max_tiles, max_per_tile, pair_budget)
-    out = composite_fwd(props, start, count, tiles_y, tiles_x)
+    out = composite(props, start, count, tiles_y, tiles_x)
     img_tiles = out[..., 0:3] + out[..., 3:4] * bg_color[None, None, :]
     return (untile(img_tiles, batch, height, width),
             untile(out[..., 3:4], batch, height, width),

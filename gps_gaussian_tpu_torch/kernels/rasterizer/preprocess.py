@@ -120,5 +120,7 @@ def project_gaussians(xyz: torch.Tensor, rot: torch.Tensor,
     radius = torch.where(keep, radius, 0.0)
     mean2d = torch.where(keep[:, None], mean2d, -1e4)
     conic = torch.where(keep[:, None], conic, 0.0)
-    return Projected(mean2d=mean2d, conic=conic, depth=tz, radius=radius,
+    # radius only feeds the tile binning: no gradient (ceil has none anyway)
+    return Projected(mean2d=mean2d, conic=conic, depth=tz,
+                     radius=radius.detach(),
                      opacity=opacity.reshape(n).float(), color=color.float())

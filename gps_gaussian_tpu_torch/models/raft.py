@@ -74,6 +74,9 @@ class RaftStereoHuman(nn.Module):
 
         predictions = []
         for it in range(iters):
+            # each iteration refines a fixed starting point: no gradient
+            # flows from one iteration's coordinates into the previous one
+            coords1 = coords1.detach()
             corr = lookup_corr_pyramid(pyramid, coords1[..., 0],
                                        radius=self.corr_radius)
             flow = coords1 - coords0

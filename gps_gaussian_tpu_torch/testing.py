@@ -5,7 +5,9 @@
 order, so both packages get bit-identical inputs. `build_scene` is a copy of
 bench.py `build_scene` :24. `silhouette_stereo_batch` is a stereo pair with
 a contiguous silhouette mask whose zero-flow geometry is a plane in front of
-both cameras, for driving the serving path with random weights.
+both cameras, for driving the serving path with random weights;
+`silhouette_train_batch` adds what a training step reads (flow targets, a
+novel camera between the two sources and its target image).
 """
 
 from __future__ import annotations
@@ -71,8 +73,9 @@ def fake_stereo_batch(batch: int = 1, res: int = 64,
 
 
 def silhouette_stereo_batch(res: int, fg_frac: float = 0.2, seed: int = 0,
-                            device="cpu"):
-    """A rectified stereo pair (batch 1) with a capsule silhouette covering
+                            device="cpu", batch: int = 1):
+    """A rectified stereo pair (`batch` samples that share cameras and
+    silhouette and differ in their images) with a capsule silhouette covering
     about `fg_frac` of each view, and the sample dict that
     `FreeviewRenderer.novel_camera_at` reads (intr_ori / extr_ori).
 
@@ -94,19 +97,46 @@ def silhouette_stereo_batch(res: int, fg_frac: float = 0.2, seed: int = 0,
         K_ref[0, 2] = ref_cx
         E = np.eye(3, 4, dtype=np.float32)
         E[0, 3] = tx
-        img = rng.uniform(-1, 1, (1, res, res, 3)).astype(np.float32)
-        m = mask[None, :, :, None]
+        img = rng.uniform(-1, 1, (batch, res, res, 3)).astype(np.float32)
+        m = np.tile(mask[None, :, :, None], (batch, 1, 1, 1))
         sv = SourceView(img=_t(img * m, device), mask=_t(m, device),
-                        intr=_t(K[None], device),
-                        ref_intr=_t(K_ref[None], device),
-                        extr=_t(E[None], device),
-                        tf_x=torch.full((1,), tf_x, device=device))
+                        intr=_t(np.tile(K, (batch, 1, 1)), device),
+                        ref_intr=_t(np.tile(K_ref, (batch, 1, 1)), device),
+                        extr=_t(np.tile(E, (batch, 1, 1)), device),
+                        tf_x=torch.full((batch,), tf_x, device=device))
         return sv, K, E
 
     left, K0, E0 = view(res / 2, res / 2 + d, 0.1, -2.0 * d)
     right, K1, E1 = view(res / 2 + d, res / 2, -0.1, 2.0 * d)
     sample = {"intr_ori": (K0, K1), "extr_ori": (E0, E1)}
     return StereoSample(lmain=left, rmain=right), sample
+
+
+def silhouette_train_batch(batch: int, res: int, novel_res: int,
+                           fg_frac: float = 0.2, seed: int = 0,
+                           device="cpu") -> StereoSample:
+    """`silhouette_stereo_batch` with what a training step reads: flow
+    targets (small seeded disparities, valid on the silhouette), and a novel
+    view halfway between the two source cameras at `novel_res` with a
+    seeded random target image."""
+    sample, cams = silhouette_stereo_batch(res, fg_frac, seed, device, batch)
+    rng = np.random.default_rng(seed + 1)
+    for v in (sample.lmain, sample.rmain):
+        v.flow = _t(rng.uniform(-2, 2, (batch, res, res, 1)).astype(
+            np.float32), device) * v.mask
+        v.valid = v.mask
+    (K0, K1), (E0, E1) = cams["intr_ori"], cams["extr_ori"]
+    cam, intr, extr = cameras.interpolated_novel_camera(
+        K0, E0, K1, E1, 0.5, novel_res, novel_res,
+        hr_scale=novel_res / res)
+    img = rng.random((batch, novel_res, novel_res, 3), dtype=np.float32)
+    sample.novel = NovelView(
+        camera=cameras.make_novel_camera([cam] * batch, novel_res, novel_res,
+                                         device=device),
+        img=_t(img, device),
+        intr=_t(np.tile(intr.astype(np.float32), (batch, 1, 1)), device),
+        extr=_t(np.tile(extr.astype(np.float32), (batch, 1, 1)), device))
+    return sample
 
 
 def build_scene(res: int = 1024, fg_frac: float = 0.15, seed: int = 0):

@@ -39,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -53,7 +54,8 @@ from gps_gaussian_tpu_torch.kernels import build
 from gps_gaussian_tpu_torch.kernels.rasterizer import (
     RasterizeConfig, compact_gaussian_inputs, rasterize)
 from gps_gaussian_tpu_torch.kernels.rasterizer.composite import (
-    composite_bwd, composite_bwd_plain, composite_fwd, composite_fwd_plain)
+    composite_bwd, composite_bwd_plain, composite_fwd, composite_fwd_plain,
+    kernel_occupancy)
 from gps_gaussian_tpu_torch.kernels.rasterizer.pair_sort import (
     sort_pairs, stack_rows)
 from gps_gaussian_tpu_torch.kernels.rasterizer.preprocess import \
@@ -118,6 +120,9 @@ BWD_OPS_PER_BLEND = 46
 FWD_SRC = "gps_gaussian_tpu_torch/csrc/composite_fwd.cu"
 BWD_SRC = "gps_gaussian_tpu_torch/csrc/composite_bwd.cu"
 PALLAS = "gps_gaussian_tpu/kernels/rasterizer/pallas_kernel.py"
+# pixel-to-lane mappings whose lockstep cost the plain versions count at the
+# main-path shapes: 16x2 strips and compact 8x4 blocks (the kernels' rows)
+WARP_SHAPES = ((16, 2), (8, 4))
 
 
 def sync_ms(fn):
@@ -168,35 +173,63 @@ def kernel_inputs(gauss, camera, rcfg, view: int = 0):
     return props, start, count
 
 
-def compare_composite(props, start, count, tiles_y, tiles_x):
-    """Kernel vs plain on the same inputs: (max abs err rgb, T, work)."""
+def compare_composite(props, start, count, tiles_y, tiles_x,
+                      warp_shapes=()):
+    """Kernel vs plain on the same inputs: (max abs err rgb, T, work, the
+    plain version's lockstep counts for `warp_shapes` or None)."""
     launches = build.LAUNCHES.get("composite_fwd", 0)
     out_k = composite_fwd(props, start, count, tiles_y, tiles_x)
-    out_p, work = composite_fwd_plain(props, start, count, tiles_y, tiles_x,
-                                      return_work=True)
+    out_p, work, *lock = composite_fwd_plain(
+        props, start, count, tiles_y, tiles_x, return_work=True,
+        warp_shapes=warp_shapes)
     torch.cuda.synchronize()
     build.LAUNCHES["composite_fwd"] = launches  # comparisons do not count
     err_rgb = float((out_k[..., :3] - out_p[..., :3]).abs().max())
     err_t = float((out_k[..., 3] - out_p[..., 3]).abs().max())
-    return err_rgb, err_t, int(work)
+    return err_rgb, err_t, int(work), (lock[0] if lock else None)
 
 
-def compare_composite_bwd(props, start, count, out, g_out, tiles_y, tiles_x):
+def check_fwd(err_rgb: float, err_t: float, what: str) -> None:
+    """rgb within TOL; T bit-equal: the kernel made the plain version's
+    include and T_EPS decisions."""
+    check(err_rgb <= TOL, f"composite_fwd vs plain {what}: rgb {err_rgb}")
+    check(err_t == 0.0, f"composite_fwd vs plain {what}: T differs by "
+          f"{err_t}, must be bit-equal")
+
+
+def fmt_lockstep(lock: dict, needed: int) -> str:
+    """The lockstep counts as evaluations spent, beside those needed."""
+    parts = [f"a 256-thread block in lockstep spends "
+             f"{256 * lock['tile_walked']} evaluations for {needed} needed"]
+    for (w, h), c in lock["warps"].items():
+        parts.append(f"{w}x{h} warps spend {w * h * c['walked']} "
+                     f"({c['walked']} warp-pairs walked, {c['included']} "
+                     f"with a lane included, {c['blended']} with a lane "
+                     f"blending)")
+    return "; ".join(parts)
+
+
+def compare_composite_bwd(props, start, count, out, g_out, tiles_y, tiles_x,
+                          warp_shapes=()):
     """Backward kernel vs plain on the same inputs, the kernel launched
     twice. Returns (per-row max abs err, per-row max abs gradient, the
     two launches bit-equal, walked and blended (pair, pixel) counts, pairs
-    that the walk reaches)."""
+    that the walk reaches, pairs the plain version left at exactly 0 where
+    the kernel did not, the lockstep counts for `warp_shapes` or None)."""
     launches = dict(build.LAUNCHES)
     g_k = composite_bwd(props, start, count, out, g_out, tiles_y, tiles_x)
     g_k2 = composite_bwd(props, start, count, out, g_out, tiles_y, tiles_x)
-    g_p, walked, blended, reached = composite_bwd_plain(
-        props, start, count, out, g_out, tiles_y, tiles_x, return_work=True)
+    g_p, walked, blended, reached, *lock = composite_bwd_plain(
+        props, start, count, out, g_out, tiles_y, tiles_x, return_work=True,
+        warp_shapes=warp_shapes)
     torch.cuda.synchronize()
     build.LAUNCHES.update(launches)  # comparisons do not count
     err = (g_k - g_p).abs().amax(dim=1)
     mag = g_p.abs().amax(dim=1)
+    stray = int(((g_p == 0).all(dim=0) & (g_k != 0).any(dim=0)).sum())
     return (err.tolist(), mag.tolist(), bool(torch.equal(g_k, g_k2)),
-            int(walked), int(blended), int(reached))
+            int(walked), int(blended), int(reached), stray,
+            (lock[0] if lock else None))
 
 
 def check_bwd_rows(err, mag, what: str) -> float:
@@ -212,6 +245,30 @@ def fmt(xs) -> str:
     return "[" + ", ".join(f"{x:.3g}" for x in xs) + "]"
 
 
+def ptxas_summary(log: str) -> str:
+    """nvcc's report, one item per kernel instantiation: its template
+    argument (pixels per lane), registers, barriers and shared memory."""
+    items, ppl = [], None
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '\w*?ILi(\d+)E", ln)
+        if entry:
+            ppl = entry.group(1)
+        elif "registers" in ln:
+            used = ln.split(":", 1)[1].strip()
+            items.append(f"{ppl} px/lane: {used}" if ppl else used)
+            ppl = None
+    return " | ".join(items)
+
+
+def fmt_occupancy(name: str, num_tiles: int) -> str:
+    """Which instantiation a launch over `num_tiles` tiles runs, and how
+    many of its blocks an SM holds."""
+    ppl, blocks, threads = kernel_occupancy(build.load(name), name,
+                                            num_tiles)
+    return (f"{ppl} px/lane, {blocks} blocks of {threads} threads resident "
+            f"per SM")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     names = ["composite_fwd", "composite_bwd"]
@@ -219,17 +276,19 @@ def phase_build() -> None:
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         built = dict(zip(names, pool.map(build.build, names)))
     secs = time.perf_counter() - t0
+    view_tiles = (2048 // 16) ** 2
     for name, (path, log) in built.items():
-        ptxas = " | ".join(ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "smem" in ln)
         print(f"[build] {name}.cu -> {path.parent.name}/{path.name}; "
-              f"ptxas: {ptxas}", flush=True)
+              f"ptxas: {ptxas_summary(log)}; over the {view_tiles} tiles of "
+              f"a 2048^2 view: {fmt_occupancy(name, view_tiles)}",
+              flush=True)
     print(f"[build] both kernels, built together, in {secs:.2f} s",
           flush=True)
 
 
-def phase_kernel(dev) -> dict:
-    res = 512
+def scene_kernel_inputs(dev, res: int):
+    """(props, start, count, foreground Gaussians) of the silhouette scene
+    (bench.py build_scene) rendered at res^2."""
     xyz, q, scale, opacity, color, valid = build_scene(res, 0.15, SEED)
     cam = scene_camera(res)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
@@ -241,22 +300,31 @@ def phase_kernel(dev) -> dict:
                          p.radius)[None]
     props, start, count, _, _ = sort_pairs(stacked, res, res, 16, 4096,
                                            None)
+    return props, start, count, int(valid.sum())
+
+
+def phase_kernel(dev) -> dict:
+    res = 512
+    props, start, count, num_fg = scene_kernel_inputs(dev, res)
     tiles = res // 16
-    err_rgb, err_t, _ = compare_composite(props, start, count, tiles, tiles)
+    err_rgb, err_t, _, _ = compare_composite(props, start, count, tiles,
+                                             tiles)
     ms = event_ms(lambda: composite_fwd(props, start, count, tiles, tiles),
                   20)
     plain_ms = event_ms(lambda: composite_fwd_plain(props, start, count,
                                                     tiles, tiles), 1)
     print(f"[kernel] composite_fwd at {res}^2 (build_scene, "
-          f"{int(valid.sum())} fg gaussians, {int(count.sum())} pairs): "
-          f"max abs err rgb {err_rgb:.3g} T {err_t:.3g} (tolerance {TOL}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms", flush=True)
-    check(err_rgb <= TOL and err_t <= TOL, "composite_fwd vs plain at 512^2")
+          f"{num_fg} fg gaussians, {int(count.sum())} pairs): "
+          f"max abs err rgb {err_rgb:.3g} (tolerance {TOL}) T {err_t:.3g} "
+          f"(must be 0); kernel {ms:.4f} ms "
+          f"({fmt_occupancy('composite_fwd', tiles * tiles)}), plain "
+          f"{plain_ms:.2f} ms", flush=True)
+    check_fwd(err_rgb, err_t, "at 512^2")
 
     out = composite_fwd(props, start, count, tiles, tiles)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     g_out = torch.randn(out.shape, generator=gen, device=dev)
-    err, mag, same, walked, blended, _ = compare_composite_bwd(
+    err, mag, same, walked, blended, _, stray, _ = compare_composite_bwd(
         props, start, count, out, g_out, tiles, tiles)
     bwd_ms = event_ms(lambda: composite_bwd(props, start, count, out, g_out,
                                             tiles, tiles), 20)
@@ -268,9 +336,12 @@ def phase_kernel(dev) -> dict:
           f"{blended} blended): max abs err per row (mx my ca cb cc op r g b)"
           f" {fmt(err)} beside max abs gradient {fmt(mag)} (tolerance "
           f"{BWD_RTOL} of the row's largest gradient); two launches "
-          f"bit-equal: {same}; kernel {bwd_ms:.4f} ms, plain "
+          f"bit-equal: {same}; pairs not 0 where the plain version has 0: "
+          f"{stray}; kernel {bwd_ms:.4f} ms "
+          f"({fmt_occupancy('composite_bwd', tiles * tiles)}), plain "
           f"{bwd_plain_ms:.2f} ms", flush=True)
     check(same, "composite_bwd gives the same bits twice")
+    check(stray == 0, "pairs without gradient keep exactly 0 at 512^2")
     bwd_err = check_bwd_rows(err, mag, "512^2")
     return {"err": max(err_rgb, err_t), "bwd_err": bwd_err}
 
@@ -546,7 +617,8 @@ def phase_main_shape(serv: dict) -> dict:
     # what the render spends before the composite: projection + pair sort
     prep_ms = event_ms(lambda: kernel_inputs(serv["gauss"], cam, rcfg), 3)
     ty, tx = -(-cam.height // 16), -(-cam.width // 16)
-    err_rgb, err_t, work = compare_composite(props, start, count, ty, tx)
+    err_rgb, err_t, work, lock = compare_composite(props, start, count, ty,
+                                                   tx, WARP_SHAPES)
     ms = event_ms(lambda: composite_fwd(props, start, count, ty, tx), 20)
     plain_ms = event_ms(lambda: composite_fwd_plain(props, start, count, ty,
                                                     tx), 1)
@@ -558,13 +630,14 @@ def phase_main_shape(serv: dict) -> dict:
     bound_ms = max(t_bytes, t_ops)
     print(f"[main-shape] composite_fwd on the serving path's inputs "
           f"({num_tiles} tiles, {pairs} live pairs, {work} pair-pixel "
-          f"evaluations needed): max abs err rgb {err_rgb:.3g} T {err_t:.3g}"
-          f" (tolerance {TOL}); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-          f"bound {bound_ms:.4f} ms (bytes {t_bytes:.4f} ms, ops "
-          f"{t_ops:.4f} ms); projection + pair sort before it {prep_ms:.3f} "
-          f"ms", flush=True)
-    check(err_rgb <= TOL and err_t <= TOL,
-          "composite_fwd vs plain at the serving shape")
+          f"evaluations needed): max abs err rgb {err_rgb:.3g} (tolerance "
+          f"{TOL}) T {err_t:.3g} (must be 0); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms (bytes {t_bytes:.4f} "
+          f"ms, ops {t_ops:.4f} ms); "
+          f"{fmt_occupancy('composite_fwd', num_tiles)}; lockstep: "
+          f"{fmt_lockstep(lock, work)}; projection + pair sort before it "
+          f"{prep_ms:.3f} ms", flush=True)
+    check_fwd(err_rgb, err_t, "at the serving shape")
     return {"err": max(err_rgb, err_t), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -584,11 +657,12 @@ def find_node(root, name: str):
     raise RuntimeError(f"no {name} node in the graph")
 
 
-def phase_main_shape_training(train: dict) -> dict:
-    """Both kernels on the inputs the training step gives them: one more
-    forward and backward of the step's loss (after the launch counts were
-    read), with the composite's saved tensors and its incoming cotangent
-    taken from its node in the autograd graph."""
+def training_kernel_inputs(train: dict):
+    """(props, start, count, out, g_out, tiles_y, tiles_x) as the training
+    step gives them to the composite: one more forward and backward of the
+    step's loss, with the composite's saved tensors and its incoming
+    cotangent taken from its node in the autograd graph. The launch counts
+    are left as they were."""
     launches = dict(build.LAUNCHES)
     loss, _ = train["step"].loss_fn(train["batch"])
     node = find_node(loss.grad_fn, "_CompositeBackward")
@@ -600,14 +674,22 @@ def phase_main_shape_training(train: dict) -> dict:
     g_out = seen["g_out"].contiguous()
     torch.cuda.synchronize()
     build.LAUNCHES.update(launches)
+    return props.detach(), start, count, out, g_out, ty, tx
+
+
+def phase_main_shape_training(train: dict) -> dict:
+    """Both kernels on the inputs the training step gives them, after the
+    launch counts were read."""
+    launches = dict(build.LAUNCHES)
+    bwd_args = training_kernel_inputs(train)
+    props, start, count, out, g_out, ty, tx = bwd_args
 
     # the forward kernel over both samples (the serving shape has one)
-    err_rgb, err_t, _ = compare_composite(props, start, count, ty, tx)
+    err_rgb, err_t, _, _ = compare_composite(props, start, count, ty, tx)
     check(bool(torch.equal(out, composite_fwd(props, start, count, ty, tx))),
           "the step's saved output is the forward kernel's on its inputs")
-    bwd_args = (props, start, count, out, g_out, ty, tx)
-    err, mag, same, walked, blended, reached = compare_composite_bwd(
-        *bwd_args)
+    err, mag, same, walked, blended, reached, stray, lock = \
+        compare_composite_bwd(*bwd_args, WARP_SHAPES)
     ms = event_ms(lambda: composite_bwd(*bwd_args), 20)
     plain_ms = event_ms(lambda: composite_bwd_plain(*bwd_args), 1)
     fwd_ms = event_ms(lambda: composite_fwd(props, start, count, ty, tx), 20)
@@ -626,17 +708,20 @@ def phase_main_shape_training(train: dict) -> dict:
     print(f"[main-shape training] on the training step's inputs, {batch} "
           f"samples ({num_tiles} tiles, {pairs} live pairs, {reached} "
           f"reached, {walked} pair-pixel evaluations walked, {blended} "
-          f"blended): composite_fwd max abs err rgb {err_rgb:.3g} T "
-          f"{err_t:.3g} (tolerance {TOL}), kernel {fwd_ms:.4f} ms; "
+          f"blended): composite_fwd max abs err rgb {err_rgb:.3g} (tolerance "
+          f"{TOL}) T {err_t:.3g} (must be 0), kernel {fwd_ms:.4f} ms; "
           f"composite_bwd max abs err per row (mx my ca cb cc op r g b) "
           f"{fmt(err)} beside max abs gradient {fmt(mag)} (tolerance "
           f"{BWD_RTOL} of the row's largest gradient); two launches "
-          f"bit-equal: {same}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-          f"bound {bound_ms:.4f} ms (bytes {t_bytes:.4f} ms, ops "
-          f"{t_ops:.4f} ms)", flush=True)
+          f"bit-equal: {same}; pairs not 0 where the plain version has 0: "
+          f"{stray}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms); "
+          f"{fmt_occupancy('composite_bwd', num_tiles)}; lockstep: "
+          f"{fmt_lockstep(lock, walked)}", flush=True)
     check(batch > 1, "the training shape holds more than one sample")
-    check(err_rgb <= TOL and err_t <= TOL,
-          "composite_fwd vs plain at the training shape")
+    check_fwd(err_rgb, err_t, "at the training shape")
+    check(stray == 0, "pairs without gradient keep exactly 0 at the "
+          "training shape")
     check(same, "composite_bwd gives the same bits twice at the training "
           "shape")
     return {"err": check_bwd_rows(err, mag, "training shape"),

@@ -25,6 +25,21 @@ Phases, one line of output each:
                read just after
   6. main-shape kernel checks - each kernel against its plain version on the
                inputs its path gave it, with its time and its bound
+  7. trained - the dataset-driven path on the committed stage-2 run's
+               weights (runs/synth256/stage2/torch, configs/stage2_synth256
+               width): the Trainer's val sweep over the run's 8 val scans,
+               rendered in memory, held to the JAX package's val PSNR and
+               EPE; two train() steps with spawned loader workers; then
+               load_renderer on the checkpoint they wrote and infer_static
+  8. trained-serving - the serving frame of phase 4 on those weights and a
+               synthetic scan rendered at 1024^2: forward, views, the
+               composite kernel's time, live pairs and drops
+  9. trainer - the Trainer at full width on SilhouetteDataset: stage 2
+               (3 steps, the val sweep, a resumed run's step) and stage 1 at
+               configs/stage1.yaml width (2 steps, the point-splat preview)
+Each of phases 4, 5, 7, 8 and 9 zeroes the launch counts just before it
+drives its path and reads them just after. The synthetic scans of phases 7
+and 8 render in worker processes while phases 1-3 run.
 With --profile DIR, one serving frame (the forward and one view) and one
 training step run under torch.profiler: each prints its device busy share
 and writes every kernel's device time to DIR/profile.txt and
@@ -38,18 +53,25 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing as mp
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from gps_gaussian_tpu_torch import native
+from gps_gaussian_tpu_torch.data.loader import collate
+from gps_gaussian_tpu_torch.data.thuman import DatasetConfig
 from gps_gaussian_tpu_torch.geometry import cameras
-from gps_gaussian_tpu_torch.infer.freeview import FreeviewRenderer
+from gps_gaussian_tpu_torch.infer.freeview import (FreeviewRenderer,
+                                                   load_renderer)
 from gps_gaussian_tpu_torch.kernels import build
 from gps_gaussian_tpu_torch.kernels.rasterizer import (
     RasterizeConfig, compact_gaussian_inputs, rasterize)
@@ -63,12 +85,15 @@ from gps_gaussian_tpu_torch.kernels.rasterizer.preprocess import \
 from gps_gaussian_tpu_torch.kernels.rasterizer.reference import \
     composite_reference
 from gps_gaussian_tpu_torch.models.layers import init_weights
-from gps_gaussian_tpu_torch.testing import (build_scene, scene_camera,
+from gps_gaussian_tpu_torch.testing import (SilhouetteDataset,
+                                            SynthMemoryDataset, build_scene,
+                                            scene_camera,
                                             silhouette_stereo_batch,
-                                            silhouette_train_batch)
+                                            silhouette_train_batch,
+                                            synth_scans)
 from gps_gaussian_tpu_torch.train.config import load_config
 from gps_gaussian_tpu_torch.train.state import create_state
-from gps_gaussian_tpu_torch.train.trainer import (make_model,
+from gps_gaussian_tpu_torch.train.trainer import (Trainer, make_model,
                                                   make_raster_config,
                                                   make_train_step)
 from gps_gaussian_tpu_torch.utils.containers import FlatGaussians
@@ -87,6 +112,37 @@ STAGE2_OVERRIDES = dict(
     dataset=dict(src_res=1024, use_hr_img=True, use_processed_data=True,
                  num_workers=4),
     record=dict(loss_freq=100, eval_freq=2000))
+# configs/stage1.yaml and configs/stage2_synth256.yaml, likewise
+STAGE1_OVERRIDES = dict(
+    name="gps_tpu_stage1", stage="stage1", batch_size=6, lr=0.0002,
+    wdecay=0.00001, num_steps=40000, scheduler_steps=100100,
+    raft=dict(mixed_precision=False, train_iters=3, val_iters=3,
+              encoder_dims=[32, 48, 96], hidden_dims=[96, 96, 96]),
+    dataset=dict(src_res=1024, use_hr_img=False, use_processed_data=True,
+                 num_workers=8),
+    record=dict(loss_freq=100, eval_freq=2000))
+SYNTH256_OVERRIDES = dict(
+    name="gps_tpu_stage2_synth256", stage="stage2", batch_size=2, lr=0.00005,
+    wdecay=0.00001, num_steps=1200, scheduler="constant", flow_weight=0.0,
+    loader_seed=0,
+    raft=dict(mixed_precision=True, train_iters=3, val_iters=3,
+              encoder_dims=[32, 48, 96], hidden_dims=[96, 96, 96]),
+    gsnet=dict(encoder_dims=[32, 48, 96], decoder_dims=[48, 64, 96],
+               parm_head_dim=32),
+    raster=dict(max_tiles_per_gaussian=16, max_per_tile=2048, fg_cap=40960,
+                pair_budget=393216),
+    dataset=dict(src_res=256, use_hr_img=True, use_processed_data=True,
+                 num_workers=4),
+    record=dict(loss_freq=50, eval_freq=150))
+# the committed stage-2 run's weights (runs/synth256/stage2, step 1200) as
+# the port's checkpoint, and the JAX package's val sweep on the CPU over the
+# same in-memory val set (8 scans, 256^2 sources, 512^2 view 3):
+# `tools/export_torch_checkpoint.py runs/synth256/stage2 --val-reference`
+TRAINED_CKPT = "runs/synth256/stage2/torch"
+JAX_VAL_PSNR = 36.466829
+JAX_VAL_EPE = 1.71273
+PSNR_TOL_DB = 0.1     # the two frameworks round bf16 convolutions apart
+EPE_RTOL = 0.02
 
 SEED = 1314
 TOL = 1e-5            # kernel vs plain version, rgb and T
@@ -133,8 +189,12 @@ def sync_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def event_ms(fn, reps: int) -> float:
-    fn()
+def event_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Mean ms of `reps` calls by CUDA events, after one warm-up call. A
+    plain version, whose one call takes seconds, is timed cold (its first
+    call's allocations are a vanishing part of it)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -312,7 +372,7 @@ def phase_kernel(dev) -> dict:
     ms = event_ms(lambda: composite_fwd(props, start, count, tiles, tiles),
                   20)
     plain_ms = event_ms(lambda: composite_fwd_plain(props, start, count,
-                                                    tiles, tiles), 1)
+                                                    tiles, tiles), 1, False)
     print(f"[kernel] composite_fwd at {res}^2 (build_scene, "
           f"{num_fg} fg gaussians, {int(count.sum())} pairs): "
           f"max abs err rgb {err_rgb:.3g} (tolerance {TOL}) T {err_t:.3g} "
@@ -329,7 +389,7 @@ def phase_kernel(dev) -> dict:
     bwd_ms = event_ms(lambda: composite_bwd(props, start, count, out, g_out,
                                             tiles, tiles), 20)
     bwd_plain_ms = event_ms(lambda: composite_bwd_plain(
-        props, start, count, out, g_out, tiles, tiles), 1)
+        props, start, count, out, g_out, tiles, tiles), 1, False)
     build.reset_launch_counts()
     print(f"[kernel-bwd] composite_bwd at {res}^2, same pairs, seeded normal "
           f"cotangents for rgb and T ({walked} pair-pixel evaluations, "
@@ -621,7 +681,7 @@ def phase_main_shape(serv: dict) -> dict:
                                                    tx, WARP_SHAPES)
     ms = event_ms(lambda: composite_fwd(props, start, count, ty, tx), 20)
     plain_ms = event_ms(lambda: composite_fwd_plain(props, start, count, ty,
-                                                    tx), 1)
+                                                    tx), 1, False)
     pairs = int(count.sum())
     num_tiles = start.shape[0]
     nbytes = 36 * pairs + 8 * num_tiles + 16 * num_tiles * 256
@@ -691,7 +751,7 @@ def phase_main_shape_training(train: dict) -> dict:
     err, mag, same, walked, blended, reached, stray, lock = \
         compare_composite_bwd(*bwd_args, WARP_SHAPES)
     ms = event_ms(lambda: composite_bwd(*bwd_args), 20)
-    plain_ms = event_ms(lambda: composite_bwd_plain(*bwd_args), 1)
+    plain_ms = event_ms(lambda: composite_bwd_plain(*bwd_args), 1, False)
     fwd_ms = event_ms(lambda: composite_fwd(props, start, count, ty, tx), 20)
     build.LAUNCHES.update(launches)
     pairs = int(count.sum())
@@ -730,6 +790,285 @@ def phase_main_shape_training(train: dict) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def synth_ds(res: int, scans: dict, phase: str) -> SynthMemoryDataset:
+    return SynthMemoryDataset(DatasetConfig(
+        data_root="", src_res=res, val_novel_ids=(3,), use_hr_img=True,
+        use_processed_data=False), scans, phase)
+
+
+def start_renders(pool) -> dict:
+    """The in-memory synthetic scans of the [trained] and [trained-serving]
+    phases, rendered in `pool`'s worker processes: the committed run's 8
+    val scans (256^2 sources, 512^2 view 3), 2 train scans (views 2-4 at
+    512^2), one test scan, and one val scan's sources at 1024^2. Returns
+    the datasets and a callable that waits for the renders."""
+    ds = {"val": synth_ds(256, synth_scans("val", 8), "val"),
+          "train": synth_ds(256, synth_scans("train", 2), "train"),
+          "test": synth_ds(256, synth_scans("train", 1), "test"),
+          "serve": synth_ds(1024, synth_scans("val", 1), "test")}
+    waits = [ds["serve"].prerender((0, 1), (), pool),
+             ds["val"].prerender((0, 1), (3,), pool),
+             ds["train"].prerender((0, 1), (2, 3, 4), pool),
+             ds["test"].prerender((0, 1), (), pool)]
+    return ds, lambda: [w() for w in waits]
+
+
+def config_with(overrides: dict, **changes):
+    cfg = load_config(None, **overrides)
+    record = {k: changes.pop(k) for k in ("loss_freq", "eval_freq")
+              if k in changes}
+    return dataclasses.replace(
+        cfg, record=dataclasses.replace(cfg.record, **record), **changes)
+
+
+def finite_history(trainer) -> bool:
+    return all(np.isfinite(v) for row in trainer.history
+               for v in row.values())
+
+
+def fmt_history(trainer, keys) -> str:
+    return "; ".join(
+        f"step {row['step']}: " + " ".join(
+            f"{k} {row[k]:.4f}" for k in keys if k in row)
+        + f", {row['step_ms']:.1f} ms, waited {row['data_wait_ms']:.1f} ms"
+        for row in trainer.history)
+
+
+def sum_launches(parts) -> dict:
+    total: dict = {}
+    for part in parts:
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_trained(dev, ds: dict, exp_root: str) -> dict:
+    """The committed run's weights through the dataset-driven path: the
+    Trainer's val sweep against the JAX package's, two training steps, then
+    load_renderer on the checkpoint they wrote and infer_static."""
+    cfg = config_with(SYNTH256_OVERRIDES, stage1_ckpt=TRAINED_CKPT,
+                      loss_freq=1, eval_freq=2)
+    launches = {}
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, exp_dir=os.path.join(exp_root, "trained"),
+                      dataset=ds["train"], val_dataset=ds["val"], device=dev)
+    n_tensors = len(trainer.model.state_dict())
+    built_s = time.perf_counter() - t0
+    build.reset_launch_counts()
+    (val, sweep_ms) = sync_ms(lambda: trainer.run_eval(0))
+    launches["eval"] = dict(build.LAUNCHES)
+    drops = [val[k] for k in ("val_num_dropped", "val_num_fg_dropped",
+                              "val_num_pair_dropped")]
+    d_psnr = val["val_psnr"] - JAX_VAL_PSNR
+    d_epe = val["val_epe"] / JAX_VAL_EPE - 1
+    print(f"[trained] {TRAINED_CKPT}: {trainer.n_restored} of {n_tensors} "
+          f"tensors restored (Trainer built in {built_s:.1f} s); native "
+          f"remap active: {native.available()}; "
+          f"val sweep over {len(ds['val'])} in-memory synthetic scans "
+          f"(256^2 sources, 512^2 view 3, batch {cfg.batch_size}) in "
+          f"{sweep_ms:.1f} ms: val_psnr {val['val_psnr']:.6f} dB (JAX "
+          f"package on the CPU {JAX_VAL_PSNR}, difference {d_psnr:+.6f}, "
+          f"tolerance {PSNR_TOL_DB}), val_epe {val['val_epe']:.6f} (JAX "
+          f"{JAX_VAL_EPE}, {100 * d_epe:+.3f}%, tolerance "
+          f"{100 * EPE_RTOL}%), val_1px {val['val_1px']:.6f}; drops "
+          f"{drops}; launches {launches['eval']}", flush=True)
+    check(trainer.n_restored == n_tensors, "every tensor restored")
+    check(abs(d_psnr) <= PSNR_TOL_DB, "val_psnr against the JAX package")
+    check(abs(d_epe) <= EPE_RTOL, "val_epe against the JAX package")
+    check(drops == [0.0, 0.0, 0.0], "no drops on the val sweep")
+    check(launches["eval"].get("composite_fwd", 0) == 4,
+          "composite_fwd once per eval batch")
+
+    build.reset_launch_counts()
+    t1 = time.perf_counter()
+    try:
+        trainer.train(num_steps=2)
+    finally:
+        trainer.close()
+    launches["train"] = dict(build.LAUNCHES)
+    ckpts = sorted(os.listdir(trainer.exp_dir / "ckpt"))
+    print(f"[trained] train(): 2 steps, loss_freq 1, eval_freq 2, "
+          f"{cfg.dataset.num_workers} spawned loader workers, "
+          f"{time.perf_counter() - t1:.1f} s with the sweep and closing: "
+          f"{fmt_history(trainer, ('loss', 'l1', 'ssim', 'grad_norm'))}; "
+          f"checkpoints {ckpts}; launches {launches['train']}", flush=True)
+    check(finite_history(trainer), "finite training metrics")
+    check("ckpt_2.pt" in ckpts, "the final checkpoint written")
+    check(launches["train"].get("composite_bwd", 0) == 2
+          and launches["train"].get("composite_fwd", 0) == 2 + 4,
+          "composite_fwd once per step and eval batch, composite_bwd once "
+          "per step")
+
+    n_views = 9
+    renderer = load_renderer(cfg, str(trainer.exp_dir / "ckpt"), ds["test"],
+                             device=dev)
+    build.reset_launch_counts()
+    images = renderer.infer_static(0, n_views=n_views)
+    launches["infer"] = dict(build.LAUNCHES)
+    check(len(images) == n_views and all(
+        img.shape == (512, 512, 3) and np.isfinite(img).all()
+        for img in images), "infer_static images")
+    sample = ds["test"].get_test_sample(0)
+    batch = collate([sample])
+    gauss, fwd_ms = sync_ms(lambda: renderer.gaussians(batch))
+    view_ms = []
+    for i in range(n_views):
+        cam = renderer.novel_camera_at(sample, (i + 0.5) / n_views, 512, 512)
+        view_ms.append(sync_ms(lambda: renderer.render(gauss, cam))[1])
+    renderer.flush_drop_report()
+    print(f"[trained] load_renderer on the step-2 checkpoint, "
+          f"infer_static(0, n_views={n_views}) on test scan "
+          f"{ds['test'].scans[0]}: {n_views} finite 512^2 images (mean "
+          f"{np.mean([img.mean() for img in images]):.4f}); forward "
+          f"{fwd_ms:.2f} ms, render ms per view "
+          f"{[round(m, 2) for m in view_ms]}; launches {launches['infer']}; "
+          f"whole phase {time.perf_counter() - t0:.1f} s", flush=True)
+    check(launches["infer"].get("composite_fwd", 0) == n_views,
+          "composite_fwd once per view")
+    return {"launches": sum_launches(launches.values()),
+            "val_psnr": val["val_psnr"]}
+
+
+def phase_trained_serving(dev, ds: dict) -> dict:
+    """The serving frame at stage-2 width on the trained weights and a
+    synthetic scan rendered at 1024^2: the first numbers on trained
+    traffic (the weights were trained at 256^2)."""
+    cfg = load_config(None, **STAGE2_OVERRIDES)
+    serve = ds["serve"]
+    renderer = load_renderer(cfg, TRAINED_CKPT, serve, device=dev)
+    sample = serve.get_test_sample(0)
+    batch = collate([sample]).to(dev)
+    out_res = 2 * cfg.dataset.src_res
+    ratios = (0.25, 0.5, 0.75)
+    cams = [renderer.novel_camera_at(sample, r, out_res, out_res)
+            for r in ratios]
+    renderer.render(renderer.gaussians(batch), cams[0])   # warm-up
+    renderer.flush_drop_report()
+
+    build.reset_launch_counts()
+    gauss, fwd_ms = sync_ms(lambda: renderer.gaussians(batch))
+    renders = []
+    for cam in cams:
+        (img, aux), ms = sync_ms(lambda: renderer.render(gauss, cam))
+        renders.append((img, aux, ms))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    fg_drops, pair_drops = renderer.flush_drop_report()
+    for img, aux, _ in renders:
+        check(tuple(img.shape) == (1, out_res, out_res, 3)
+              and bool(torch.isfinite(img).all()), "trained-serving image")
+    props, start, count = kernel_inputs(gauss, cams[1], renderer.rcfg)
+    ty, tx = -(-out_res // 16), -(-out_res // 16)
+    err_rgb, err_t, work, _ = compare_composite(props, start, count, ty, tx)
+    comp_ms = event_ms(lambda: composite_fwd(props, start, count, ty, tx),
+                       20)
+    build.LAUNCHES.update(launches)
+    drops = [(int(a.num_dropped.sum()), int(a.num_fg_dropped.sum()),
+              int(a.num_pair_dropped.sum())) for _, a, _ in renders]
+    covered = [float((a.transmittance < 0.5).float().mean())
+               for _, a, _ in renders]
+    print(f"[trained-serving] stage2 width, {TRAINED_CKPT} weights (trained "
+          f"at 256^2), synthetic val scan {serve.scans[0]} rendered at "
+          f"{cfg.dataset.src_res}^2 -> {out_res}^2 views: forward "
+          f"{fwd_ms:.2f} ms; render ms per view "
+          f"{[round(m, 2) for _, _, m in renders]}; live gaussians "
+          f"{int(gauss.valid.sum())}; composite_fwd at ratio 0.5: "
+          f"{int(count.sum())} live pairs, {work} pair-pixel evaluations, "
+          f"{comp_ms:.4f} ms (CUDA events, 20 launches), max abs err rgb "
+          f"{err_rgb:.3g} T {err_t:.3g}; drops (dup, fg, pair) per view "
+          f"{drops}, fg_cap drops {fg_drops}, flushed pair drops "
+          f"{pair_drops}; covered pixel share "
+          f"{[round(c, 4) for c in covered]}; launches {launches}",
+          flush=True)
+    check_fwd(err_rgb, err_t, "on trained traffic")
+    check(launches.get("composite_fwd", 0) == len(ratios),
+          "composite_fwd once per view")
+    return {"launches": launches, "err": max(err_rgb, err_t)}
+
+
+def phase_trainer(dev, exp_root: str) -> dict:
+    """The Trainer at full width on SilhouetteDataset: stage 2 (3 steps,
+    the val sweep at step 3, then a resumed run's step 4) with stage2.yaml's
+    spawned loader workers, and stage 1 at stage1.yaml's width (batch 6,
+    f32, 2 steps, then the val sweep's point-splat preview)."""
+    launches = {}
+    cfg = config_with(STAGE2_OVERRIDES, loss_freq=1, eval_freq=3)
+    res, out_res = cfg.dataset.src_res, 2 * cfg.dataset.src_res
+    train_ds = SilhouetteDataset(res, out_res, 8, seed=SEED)
+    val_ds = SilhouetteDataset(res, out_res, 2, seed=SEED + 1)
+    s2_dir = os.path.join(exp_root, "stage2")
+    trainer = Trainer(cfg, exp_dir=s2_dir, dataset=train_ds,
+                      val_dataset=val_ds, device=dev)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer.train(num_steps=3)
+    finally:
+        trainer.close()
+    secs = time.perf_counter() - t0
+    launches["stage2"] = dict(build.LAUNCHES)
+    keys = ("loss", "l1", "ssim", "flow_loss", "grad_norm", "num_dropped")
+    print(f"[trainer] stage 2 at stage2 width on SilhouetteDataset "
+          f"({res}^2 sources, {out_res}^2 targets, batch {cfg.batch_size}, "
+          f"{cfg.dataset.num_workers} spawned loader workers): 3 steps and "
+          f"the val sweep at step 3 in {secs:.1f} s: "
+          f"{fmt_history(trainer, keys)}; launches {launches['stage2']}",
+          flush=True)
+    check(finite_history(trainer) and len(trainer.history) == 3,
+          "stage-2 metrics logged and finite")
+    check(launches["stage2"].get("composite_bwd", 0) == 3
+          and launches["stage2"].get("composite_fwd", 0) == 3 + 1,
+          "composite_fwd once per step and eval batch, composite_bwd once "
+          "per step")
+
+    resumed = Trainer(dataclasses.replace(
+        cfg, restore_ckpt=os.path.join(s2_dir, "ckpt")),
+        exp_dir=os.path.join(exp_root, "stage2-resumed"), dataset=train_ds,
+        val_dataset=val_ds, device=dev)
+    start = resumed.state.step
+    build.reset_launch_counts()
+    try:
+        resumed.train(num_steps=4)
+    finally:
+        resumed.close()
+    launches["resumed"] = dict(build.LAUNCHES)
+    print(f"[trainer] resumed from {os.path.basename(s2_dir)}/ckpt at step "
+          f"{start}: {fmt_history(resumed, keys)}; launches "
+          f"{launches['resumed']}", flush=True)
+    check(start == 3 and resumed.state.step == 4, "resume at step 3")
+    check(finite_history(resumed), "resumed metrics finite")
+    check(launches["resumed"].get("composite_bwd", 0) == 1
+          and launches["resumed"].get("composite_fwd", 0) == 1,
+          "the resumed step launched both kernels once")
+
+    cfg1 = config_with(STAGE1_OVERRIDES, loss_freq=1, eval_freq=10 ** 9)
+    res1 = cfg1.dataset.src_res
+    s1 = Trainer(cfg1, exp_dir=os.path.join(exp_root, "stage1"),
+                 dataset=SilhouetteDataset(res1, res1, 12, seed=SEED),
+                 val_dataset=SilhouetteDataset(res1, res1, cfg1.batch_size,
+                                               seed=SEED + 1), device=dev)
+    t0 = time.perf_counter()
+    try:
+        s1.train(num_steps=2)
+        val = s1.run_eval(2)
+    finally:
+        s1.close()
+    secs = time.perf_counter() - t0
+    preview = s1.last_preview
+    print(f"[trainer] stage 1 at stage1 width ({res1}^2, batch "
+          f"{cfg1.batch_size}, f32, {cfg1.dataset.num_workers} spawned "
+          f"loader workers): 2 steps and the val sweep in {secs:.1f} s: "
+          f"{fmt_history(s1, ('loss', 'train_epe', 'grad_norm'))}; val "
+          f"{ {k: round(v, 4) for k, v in val.items()} }; splat_points "
+          f"preview {None if preview is None else preview.shape}, covered "
+          f"share {float((preview.sum(-1) > 0).mean()):.4f}", flush=True)
+    check(finite_history(s1) and np.isfinite(val["val_epe"]),
+          "stage-1 metrics finite")
+    check(preview is not None and preview.shape == (res1, res1, 3)
+          and np.isfinite(preview).all(), "stage-1 preview image")
+    return {"launches": sum_launches(launches.values())}
+
+
 def main(argv) -> int:
     if argv and (len(argv) != 2 or argv[0] != "--profile"):
         print("usage: python3 chip_smoke.py [--profile DIR]", file=sys.stderr)
@@ -743,29 +1082,54 @@ def main(argv) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    try:
+        import PIL
+        pil = f"Pillow {PIL.__version__} imports"
+    except ImportError:
+        pil = "no Pillow"
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"{smi}", flush=True)
+          f"{smi}; {pil} (the phases below do not need it)", flush=True)
 
+    # the synthetic scans of the dataset phases render on the host while the
+    # kernels build and are checked; the timed phases start after them
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(os.cpu_count(),
+                               mp_context=mp.get_context("spawn"))
+    datasets, wait_renders = start_renders(pool)
     phase_build()
     k512 = phase_kernel(dev)
     phase_oracle(dev)
+    wait_renders()
+    pool.shutdown()
+    print(f"[renders] {sum(len(d._views) for d in datasets.values())} "
+          f"synthetic views rendered in worker processes, "
+          f"{time.perf_counter() - t0:.1f} s after they started", flush=True)
     serv = phase_serving(dev)
     train = phase_training(dev)
     if argv[:1] == ["--profile"]:
         phase_profile(serv, train, argv[1])
     main_f = phase_main_shape(serv)
     main_b = phase_main_shape_training(train)
+    exp_root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        trained = phase_trained(dev, datasets, exp_root)
+        trained_serv = phase_trained_serving(dev, datasets)
+        trainer = phase_trainer(dev, exp_root)
+    finally:
+        shutil.rmtree(exp_root, ignore_errors=True)
+    paths = {"serving": serv, "training": train, "trained": trained,
+             "trained_serving": trained_serv, "trainer": trainer}
 
     def launches(name):
-        return {"launches": serv["launches"].get(name, 0)
-                + train["launches"].get(name, 0),
-                "launches_serving": serv["launches"].get(name, 0),
-                "launches_training": train["launches"].get(name, 0)}
+        per = {f"launches_{path}": out["launches"].get(name, 0)
+               for path, out in paths.items()}
+        return {"launches": sum(per.values()), **per}
 
     kernels = [{
         "name": "composite_fwd", "route": "cuda", "source": FWD_SRC,
         "replaces": f"{PALLAS}:767", **launches("composite_fwd"),
-        "max_abs_err": max(k512["err"], main_f["err"], main_b["fwd_err"]),
+        "max_abs_err": max(k512["err"], main_f["err"], main_b["fwd_err"],
+                           trained_serv["err"]),
         "ms": main_f["ms"], "plain_ms": main_f["plain_ms"],
         "bound_ms": main_f["bound_ms"], "bound_by": main_f["bound_by"],
         "library_ms": None}, {

@@ -1,10 +1,11 @@
 """Free-view novel-view serving: the stereo network runs once per frame,
 then any number of novel views are splatted from its Gaussians.
 
-Counterpart of gps_gaussian_tpu/infer/freeview.py `compact_valid` :30 and
+Counterpart of gps_gaussian_tpu/infer/freeview.py `compact_valid` :30,
 `FreeviewRenderer` (`gaussians`, `render`, `flush_drop_report`,
-`novel_camera_at`). The dataset-driven sweeps (`infer_static`,
-`infer_sequence`, `load_renderer`) are not ported yet.
+`novel_camera_at`, the dataset-driven sweeps `infer_static` :224 and
+`infer_sequence` :253) and `load_renderer` :277. One device: the
+tile-row-sharded render is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ from typing import Mapping
 
 import torch
 
+from gps_gaussian_tpu_torch.data.loader import collate
 from gps_gaussian_tpu_torch.geometry import cameras
 from gps_gaussian_tpu_torch.kernels.rasterizer import (
     compact_gaussian_inputs, rasterize)
+from gps_gaussian_tpu_torch.train import state as state_lib
 from gps_gaussian_tpu_torch.train.config import Config
 from gps_gaussian_tpu_torch.train.trainer import make_model, make_raster_config
 from gps_gaussian_tpu_torch.utils.containers import (FlatGaussians,
@@ -50,13 +53,16 @@ class FreeviewRenderer:
     """Stereo forward once -> pixel-aligned Gaussians -> render any view.
 
     `state_dict` holds the model's weights under the reference's names
-    (utils/weights.py converts flax parameters). Runs on `device`: CUDA
-    unless the caller asks for the CPU."""
+    (utils/weights.py converts flax parameters). `dataset` (a
+    StereoHumanDataset, or anything with its `get_test_sample` and
+    `__len__`) feeds the sweeps. Runs on `device`: CUDA unless the caller
+    asks for the CPU."""
 
     def __init__(self, cfg: Config, state_dict: Mapping[str, torch.Tensor],
-                 device="cuda"):
+                 dataset=None, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.dataset = dataset
         self.model = make_model(cfg, with_gs=True)
         self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
@@ -140,3 +146,50 @@ class FreeviewRenderer:
             zfar=self.cfg.dataset.zfar)
         return cameras.make_novel_camera([cam], height, width,
                                          device=self.device)
+
+    def _out_res(self) -> int:
+        res = self.cfg.dataset.src_res
+        return res * 2 if self.cfg.dataset.use_hr_img else res
+
+    def infer_static(self, index: int, n_views: int = 9) -> list:
+        """One frame seen from ratios (i + 0.5) / n_views between its two
+        source cameras: the stereo forward runs once, each view renders
+        only. Returns n_views (H, W, 3) numpy images in [0, 1]."""
+        assert self.dataset is not None
+        sample = self.dataset.get_test_sample(index)
+        gauss = self.gaussians(collate([sample]))
+        out_res = self._out_res()
+        images = []
+        for i in range(n_views):
+            cam = self.novel_camera_at(sample, (i + 0.5) / n_views, out_res,
+                                       out_res)
+            img, _ = self.render(gauss, cam)
+            images.append(img[0].clamp(0, 1).cpu().numpy())
+        self.flush_drop_report()
+        return images
+
+    def infer_sequence(self, ratio: float = 0.5):
+        """Every frame of the dataset from one fixed novel ratio: yields
+        (scan name, (H, W, 3) numpy image in [0, 1])."""
+        assert self.dataset is not None
+        out_res = self._out_res()
+        for idx in range(len(self.dataset)):
+            sample = self.dataset.get_test_sample(idx)
+            gauss = self.gaussians(collate([sample]))
+            cam = self.novel_camera_at(sample, ratio, out_res, out_res)
+            img, _ = self.render(gauss, cam)
+            yield sample["name"], img[0].clamp(0, 1).cpu().numpy()
+        self.flush_drop_report()
+
+
+def load_renderer(cfg: Config, ckpt_dir: str, dataset=None,
+                  device="cuda") -> FreeviewRenderer:
+    """A renderer on the trained weights of `ckpt_dir` (a run directory of
+    `ckpt_<step>.pt` files, the latest taken, or one file). Raises when no
+    tensor of the model is found there."""
+    device = resolve_device(device)
+    model = make_model(cfg, with_gs=True)
+    n = state_lib.restore_params_partial(ckpt_dir, model)
+    if n == 0:
+        raise FileNotFoundError(f"no restorable params in {ckpt_dir}")
+    return FreeviewRenderer(cfg, model.state_dict(), dataset, device=device)

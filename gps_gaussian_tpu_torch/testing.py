@@ -8,13 +8,28 @@ a contiguous silhouette mask whose zero-flow geometry is a plane in front of
 both cameras, for driving the serving path with random weights;
 `silhouette_train_batch` adds what a training step reads (flow targets, a
 novel camera between the two sources and its target image).
+
+Two datasets with the interface of `data/thuman.py StereoHumanDataset`
+(`scans`, `__len__`, `get_sample`, `get_test_sample`, `novel_view`) need no
+files and no image codec: `SynthMemoryDataset` renders the scenes of
+`data/synth.py generate_scan` in memory and runs the real rectification,
+flow and sampling code on them; `SilhouetteDataset` serves silhouette
+stereo pairs at any width, for full-width training runs.
 """
 
 from __future__ import annotations
 
+import time
+from concurrent.futures import Executor
+from typing import Callable, Mapping, Optional, Sequence
+
 import numpy as np
 import torch
 
+from gps_gaussian_tpu_torch.data import synth
+from gps_gaussian_tpu_torch.data.thuman import (DatasetConfig,
+                                                StereoHumanDataset,
+                                                unproject_inv_depth)
 from gps_gaussian_tpu_torch.geometry import cameras
 from gps_gaussian_tpu_torch.utils.containers import (NovelCamera, NovelView,
                                                      SourceView, StereoSample)
@@ -187,3 +202,202 @@ def scene_camera(res: int) -> dict:
     E[1, 3] = -0.85
     E[2, 3] = 2.0
     return cameras.camera_from_intr_extr(K, E, res, res)
+
+
+def _scan_scene(seed: int):
+    """The spheres and the view angles of `synth.generate_scan(seed)`,
+    drawn from its generator in the same order."""
+    rng = np.random.default_rng(seed)
+    centers, radii, colors = synth.humanoid_spheres(rng)
+    base = rng.uniform(0, 2 * np.pi)
+    arc = np.deg2rad(synth.ARC_DEG)
+    angles = {
+        0: base,
+        1: base + arc,
+        2: base + rng.uniform(0.25, 0.75) * arc,
+        3: base + 0.5 * arc,
+        4: base + rng.uniform(0.1, 0.9) * arc,
+    }
+    return centers, radii, colors, angles
+
+
+def render_synth_view(seed: int, vid: int, res: int, hr: bool):
+    """One view of `synth.generate_scan(seed, res)` as its files would hold
+    it, without the files: (rgb uint8, mask uint8, inverse depth quantized
+    as the uint16 depth file stores it, intrinsics and extrinsics as the
+    float64 .npy files hold them). `hr` renders the 2x target of a novel
+    view (its rgb is the `<vid>_hr.jpg` image; the rest is of the 2x
+    render). The images skip the JPEG round trip."""
+    centers, radii, colors, angles = _scan_scene(seed)
+    scale = 2 if hr else 1
+    intr, extr = synth.ring_camera(angles[vid], res * scale)
+    rgb8, mask8, invd = synth.render_spheres(centers, radii, colors, intr,
+                                             extr, res * scale)
+    depth16 = np.clip(invd * (2.0 ** 15), 0, 65535).astype(np.uint16)
+    return (rgb8, mask8, depth16.astype(np.float32) / (2.0 ** 15),
+            np.asarray(intr, np.float64), np.asarray(extr, np.float64))
+
+
+def _render_key(args):
+    seed, vid, res, hr = args
+    return render_synth_view(seed, vid, res, hr)
+
+
+def synth_scans(split: str, n: int, seed: int = 1314) -> dict:
+    """{scan name: seed} of `synth.generate_dataset(seed=seed)`'s first `n`
+    scans of `split` ("train" or "val")."""
+    first = 0 if split == "train" else 1000
+    return {f"{first + i:04d}": seed + first + i for i in range(n)}
+
+
+class SynthMemoryDataset(StereoHumanDataset):
+    """A StereoHumanDataset whose `load_view` alone is replaced by in-memory
+    renders of `synth.generate_scan` (same seeds, cameras and view ids);
+    rectification, ground-truth flow, erosion and sampling run the real
+    code. `scans` maps each scan name to its seed (generate_dataset names
+    train scan i "%04d" % i with seed 1314 + i, val scan i "%04d" %
+    (1000 + i) with seed 2314 + i). No cache: `use_processed_data` is
+    ignored. Views are rendered at first use and kept; `prerender` renders
+    many at once in worker processes."""
+
+    def __init__(self, cfg: DatasetConfig, scans: Mapping[str, int],
+                 phase: str = "val"):
+        self.cfg = cfg
+        self.phase = phase
+        self.root = None
+        self.cache_dir = None
+        self.seeds = dict(scans)
+        self.scans = sorted(self.seeds)
+        self._views: dict = {}
+
+    def _view(self, scan: str, vid: int, hr: bool):
+        key = (self.seeds[scan], vid, self.cfg.src_res, hr)
+        if key not in self._views:
+            self._views[key] = render_synth_view(*key)
+        return self._views[key]
+
+    def prerender(self, vids: Sequence[int], hr_vids: Sequence[int],
+                  pool: Executor) -> Callable[[], None]:
+        """Start rendering views `vids` and the 2x targets of `hr_vids` of
+        every scan in `pool`'s worker processes; returns a callable that
+        waits for them and keeps them."""
+        # a 2x target's mask and depth are its base view's, as on disk
+        keys = [(self.seeds[s], v, self.cfg.src_res, hr)
+                for s in self.scans
+                for v, hr in [(v, False) for v in (*vids, *hr_vids)]
+                + [(v, True) for v in hr_vids]]
+        keys = [k for k in dict.fromkeys(keys) if k not in self._views]
+        futures = [pool.submit(_render_key, k) for k in keys]
+        return lambda: self._views.update(
+            (k, f.result()) for k, f in zip(keys, futures))
+
+    def load_view(self, scan: str, vid: int, hr: bool = False,
+                  need_depth: bool = True):
+        # as the files hold it: a 2x target is an image alone, its mask and
+        # depth are the base view's and its intrinsics the base ones doubled
+        rgb8, mask8, inv_depth, intr, extr = self._view(scan, vid, False)
+        intr = intr.copy()
+        if hr:
+            rgb8 = self._view(scan, vid, True)[0]
+            intr[:2] *= 2
+        pts = (unproject_inv_depth(inv_depth, intr, extr) if need_depth
+               else None)
+        return rgb8, mask8, intr, extr.copy(), pts
+
+
+class SilhouetteDataset:
+    """Silhouette stereo pairs (`silhouette_stereo_batch`'s rig) served
+    sample by sample with the StereoHumanDataset interface, at any width:
+    `res`^2 sources with seeded images and flow targets, novel views
+    2, 3, 4 at ratios 0.25, 0.5, 0.75 between the sources with seeded
+    `novel_res`^2 target images. Sample `i` draws from
+    default_rng([seed, i]), so it is the same in every process."""
+
+    def __init__(self, res: int, novel_res: int, n_scans: int,
+                 fg_frac: float = 0.2, seed: int = 0):
+        self.res, self.novel_res = res, novel_res
+        self.fg_frac, self.seed = fg_frac, seed
+        self.scans = [f"sil{i:04d}" for i in range(n_scans)]
+
+    def __len__(self):
+        return len(self.scans)
+
+    def _rig(self):
+        res = self.res
+        v = (np.arange(res, dtype=np.float32) + 0.5) / res
+        w_amp = (self.fg_frac - 0.025) * np.pi / 2.0
+        half = 0.0125 + w_amp * np.sin(np.pi * v) / 2.0
+        mask = (np.abs(v[None, :] - 0.5) < half[:, None]).astype(np.float32)
+        d, f = 0.05 * res, 0.8 * res
+        views = []
+        for cx, ref_cx, tx, tf_x in ((res / 2, res / 2 + d, 0.1, -2.0 * d),
+                                     (res / 2 + d, res / 2, -0.1, 2.0 * d)):
+            K = np.array([[f, 0, cx], [0, f, res / 2], [0, 0, 1]],
+                         np.float32)
+            K_ref = K.copy()
+            K_ref[0, 2] = ref_cx
+            E = np.eye(3, 4, dtype=np.float32)
+            E[0, 3] = tx
+            views.append((K, K_ref, E, np.float32(tf_x)))
+        return mask[..., None], views
+
+    def _sources(self, index: int, with_flow: bool) -> dict:
+        rng = np.random.default_rng([self.seed, index % len(self)])
+        mask, views = self._rig()
+        sample = {"name": self.scans[index % len(self)]}
+        for name, (K, K_ref, E, tf_x) in zip(("lmain", "rmain"), views):
+            img = rng.uniform(-1, 1, mask.shape[:2] + (3,)).astype(
+                np.float32)
+            sample[name] = {"img": img * mask, "mask": mask, "intr": K,
+                            "ref_intr": K_ref, "extr": E, "tf_x": tf_x}
+            if with_flow:
+                sample[name]["flow"] = rng.uniform(
+                    -2, 2, mask.shape).astype(np.float32) * mask
+                sample[name]["valid"] = mask
+        return sample
+
+    def novel_view(self, scan: str, vid: int) -> dict:
+        _, ((K0, _, E0, _), (K1, _, E1, _)) = self._rig()
+        n = self.novel_res
+        cam, intr, extr = cameras.interpolated_novel_camera(
+            K0, E0, K1, E1, (vid - 1) / 4.0, n, n, hr_scale=n / self.res)
+        rng = np.random.default_rng([self.seed, self.scans.index(scan),
+                                     vid])
+        return {"img": rng.random((n, n, 3), dtype=np.float32),
+                "intr": intr.astype(np.float32),
+                "extr": extr.astype(np.float32),
+                "height": n, "width": n, **cam}
+
+    def get_sample(self, index: int, novel_ids: Optional[Sequence[int]],
+                   rng: Optional[np.random.Generator] = None) -> dict:
+        sample = self._sources(index, with_flow=True)
+        if novel_ids is not None:
+            vid = int((rng or np.random.default_rng()).choice(
+                list(novel_ids)))
+            sample["novel"] = self.novel_view(sample["name"], vid)
+        return sample
+
+    def get_test_sample(self, index: int) -> dict:
+        sample = self._sources(index, with_flow=False)
+        _, ((K0, _, E0, _), (K1, _, E1, _)) = self._rig()
+        sample["intr_ori"] = (K0, K1)
+        sample["extr_ori"] = (E0, E1)
+        return sample
+
+
+class DelayedDataset:
+    """`dataset` with a pause before each sample: `delays[i % len]` seconds
+    for index i, so that a loader's workers finish batches out of the order
+    in which they took them."""
+
+    def __init__(self, dataset, delays: Sequence[float]):
+        self.dataset = dataset
+        self.delays = list(delays)
+        self.scans = dataset.scans
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def get_sample(self, index: int, novel_ids, rng=None) -> dict:
+        time.sleep(self.delays[index % len(self.delays)])
+        return self.dataset.get_sample(index, novel_ids, rng)

@@ -1,14 +1,20 @@
 """Typed config tree + yaml recipe overlay.
 
 Copy of gps_gaussian_tpu/train/config.py (the port imports nothing from the
-JAX package). `load_config(yaml_path, **overrides)` overlays a recipe and
-then keyword overrides onto the defaults; PyYAML is imported only when a
-yaml file is given, so `load_config(None, **overrides)` needs no PyYAML.
+JAX package). `load_config(path, **overrides)` overlays a recipe and then
+keyword overrides onto the defaults. A `.json` recipe is read with the
+standard library, anything else with PyYAML (imported only then): JSON is
+a subset of YAML, so the JAX package's `load_config` reads a `.json` recipe
+to the same Config (provided its floats carry a decimal point, which
+`save_config` sees to), and a machine without PyYAML runs from one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import re
+from pathlib import Path
 from typing import Optional, Tuple
 
 
@@ -149,14 +155,29 @@ def _overlay(dc, updates: dict):
     return dataclasses.replace(dc, **kwargs)
 
 
-def load_config(yaml_path: Optional[str] = None, **overrides) -> Config:
+def load_config(path: Optional[str] = None, **overrides) -> Config:
     cfg = Config()
-    if yaml_path is not None:
-        import yaml
+    if path is not None:
+        with open(path) as f:
+            if str(path).endswith(".json"):
+                data = json.load(f)
+            else:
+                import yaml
 
-        with open(yaml_path) as f:
-            data = yaml.safe_load(f) or {}
-        cfg = _overlay(cfg, data)
+                data = yaml.safe_load(f)
+        cfg = _overlay(cfg, data or {})
     if overrides:
         cfg = _overlay(cfg, overrides)
     return cfg
+
+
+def save_config(cfg: Config, path: str):
+    """Write `cfg` as JSON that PyYAML also reads to the same values: YAML
+    1.1 takes 5e-05 for a string, so an exponent gets its decimal point
+    (5.0e-05). The JAX package's save_config writes 5e-05."""
+    text = json.dumps(dataclasses.asdict(cfg), indent=1)
+    # with indent=1 every bare number ends its line, after ': ' or indent
+    text = re.sub(r"(?m)(: |^\s+)(-?\d+)(e[-+]\d+)(,?)$", r"\1\2.0\3\4",
+                  text)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(text)

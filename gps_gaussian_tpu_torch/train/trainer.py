@@ -1,31 +1,47 @@
-"""The two training stages' steps: stage 1 trains disparity only, stage 2
-trains end to end through the differentiable rasterizer with the loss
+"""The two training stages: stage 1 trains disparity only, stage 2 trains
+end to end through the differentiable rasterizer with the loss
 flow_weight * flow + l1_weight * L1 + ssim_weight * (1 - SSIM).
 
 Counterpart of gps_gaussian_tpu/train/trainer.py: `make_model` :34,
 `make_raster_config` :48, `render_novel` :57, `drop_metrics` :67,
-`_stacked_flow_gt` :78, `make_train_step` :84 and `make_eval_step` :192.
-Convolutions compute in bf16 under raft.mixed_precision; parameters, losses
-and the optimizer stay f32. Not ported yet: the `Trainer` class (loaders,
-logging, checkpoint cadence, the eval sweep) and the stage-1 point-splat
-preview, so the stage-1 eval step returns no image.
+`_stacked_flow_gt` :78, `make_train_step` :84, `make_eval_step` :192 with
+its stage-1 point-splat preview :196, and the `Trainer` :254 (loaders,
+logging, checkpoint cadence, the eval sweep). Convolutions compute in bf16
+under raft.mixed_precision; parameters, losses and the optimizer stay f32.
+One device: the multi-device step is not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
+import subprocess
+import time
+from pathlib import Path
 from typing import Callable, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from gps_gaussian_tpu_torch.data.loader import BatchLoader, eval_batches
+from gps_gaussian_tpu_torch.data.thuman import (DatasetConfig,
+                                                StereoHumanDataset)
+from gps_gaussian_tpu_torch.geometry.pointcloud import (flow_to_inv_depth,
+                                                        inv_depth_to_points)
+from gps_gaussian_tpu_torch.kernels.point_splat import splat_points
 from gps_gaussian_tpu_torch.kernels.rasterizer import (RasterizeConfig,
                                                        rasterize)
 from gps_gaussian_tpu_torch.models.gps_gaussian import GPSGaussianModel
+from gps_gaussian_tpu_torch.models.layers import init_weights
 from gps_gaussian_tpu_torch.train import losses
+from gps_gaussian_tpu_torch.train import state as state_lib
 from gps_gaussian_tpu_torch.train.config import Config
 from gps_gaussian_tpu_torch.train.state import TrainState
 from gps_gaussian_tpu_torch.utils.containers import NovelView, StereoSample
 from gps_gaussian_tpu_torch.utils.device import resolve_device
+from gps_gaussian_tpu_torch.utils.images import write_image
+from gps_gaussian_tpu_torch.utils.profiling import StepTimer
+
+log = logging.getLogger("gps_tpu_torch.train")
 
 
 def make_model(cfg: Config, with_gs: bool) -> GPSGaussianModel:
@@ -148,14 +164,34 @@ def make_train_step(model: GPSGaussianModel, cfg: Config, stage: str,
     return train_step
 
 
+def stage1_preview(batch: StereoSample, flow_up: torch.Tensor):
+    """Point-splat both views' predicted geometry into the novel camera (the
+    reference's Taichi preview): (B, H, W, 3) in [0, 1]. `flow_up` stacks
+    the left views' flow over the right views'."""
+    bs = batch.lmain.img.shape[0]
+    pts, rgbs, valids = [], [], []
+    for i, view in enumerate((batch.lmain, batch.rmain)):
+        flow_v = flow_up[i * bs:(i + 1) * bs]
+        inv_d = flow_to_inv_depth(flow_v, view.intr, view.ref_intr,
+                                  view.tf_x, view.mask)
+        xyz = inv_depth_to_points(inv_d[..., 0], view.extr, view.intr)
+        pts.append(xyz.reshape(bs, -1, 3))
+        rgbs.append((view.img * 0.5 + 0.5).reshape(bs, -1, 3))
+        valids.append((inv_d[..., 0] != 0).float().reshape(bs, -1))
+    cam = batch.novel.camera
+    return splat_points(torch.cat(pts, 1), torch.cat(rgbs, 1),
+                        torch.cat(valids, 1), batch.novel.intr,
+                        batch.novel.extr, cam.height, cam.width)
+
+
 def make_eval_step(model: GPSGaussianModel, cfg: Config, stage: str,
                    rcfg: RasterizeConfig, device="cuda"):
     """Returns `eval_step(batch, weight) -> (metrics, img_pred)`.
 
     `weight` (B,) f32 masks samples out of the means. Every metric is a
     (numerator, denominator) pair, so that sums over batches stay exact
-    under any weights. Stage 2 also renders the novel view; stage 1
-    returns None for the image."""
+    under any weights. Stage 2 renders the novel view; stage 1 returns the
+    point-splat preview when the batch has a novel view, else None."""
     dev = resolve_device(device)
     _check_placement(model, dev)
     bg = torch.tensor(cfg.dataset.bg_color, dtype=torch.float32, device=dev)
@@ -183,6 +219,207 @@ def make_eval_step(model: GPSGaussianModel, cfg: Config, stage: str,
             one = torch.ones((), dtype=torch.float32, device=dev)
             metrics.update({k: (v, one) for k, v in
                             drop_metrics(raux, prefix="val_").items()})
+        elif batch.novel is not None:
+            img_pred = stage1_preview(batch, out.final_flow)
         return metrics, img_pred
 
     return eval_step
+
+
+class Trainer:
+    """Runs an experiment: loaders, steps, logging, checkpoints, the eval
+    sweep. Runs on `device`, CUDA unless the caller asks for the CPU.
+
+    The model is initialised from `torch.Generator().manual_seed(cfg.seed)`
+    (no batch is needed, so the loader's data order starts at its first
+    batch); stage 2 then warm-starts from `cfg.stage1_ckpt` (a run
+    directory of `ckpt_<step>.pt` files or one file; `n_restored` counts
+    the tensors copied), and `cfg.restore_ckpt` resumes a run with its
+    optimizer, scheduler and step."""
+
+    def __init__(self, cfg: Config, exp_dir: Optional[str] = None,
+                 dataset=None, val_dataset=None, device="cuda"):
+        self.cfg = cfg
+        self.stage = cfg.stage
+        self.device = resolve_device(device)
+        self.exp_dir = Path(exp_dir or
+                            f"{cfg.record.ckpt_path}/{cfg.name}")
+        for sub in ("ckpt", "show", "logs"):
+            (self.exp_dir / sub).mkdir(parents=True, exist_ok=True)
+
+        ds_cfg = DatasetConfig(
+            data_root=cfg.dataset.data_root,
+            src_res=cfg.dataset.src_res,
+            source_ids=tuple(cfg.dataset.source_id),
+            train_novel_ids=tuple(cfg.dataset.train_novel_id),
+            val_novel_ids=tuple(cfg.dataset.val_novel_id),
+            use_hr_img=cfg.dataset.use_hr_img,
+            use_processed_data=cfg.dataset.use_processed_data,
+            znear=cfg.dataset.znear, zfar=cfg.dataset.zfar)
+        self.train_ds = (dataset if dataset is not None
+                         else StereoHumanDataset(ds_cfg, "train"))
+        self.val_ds = (val_dataset if val_dataset is not None
+                       else StereoHumanDataset(ds_cfg, "val"))
+
+        self.model = make_model(cfg, with_gs=(self.stage == "stage2"))
+        init_weights(self.model, torch.Generator().manual_seed(cfg.seed))
+        self.n_restored = 0
+        if self.stage == "stage2" and cfg.stage1_ckpt:
+            self.n_restored = state_lib.restore_params_partial(
+                cfg.stage1_ckpt, self.model)
+            log.info("stage1 warm start: %d tensors restored",
+                     self.n_restored)
+        self.state = state_lib.create_state(cfg, self.model, self.device)
+        if cfg.restore_ckpt:
+            state_lib.restore_checkpoint(cfg.restore_ckpt, self.state)
+            log.info("resumed at step %d", self.state.step)
+        self.rcfg = make_raster_config(cfg)
+        self.train_step = make_train_step(self.model, cfg, self.stage,
+                                          self.rcfg, self.state, self.device)
+        self.eval_step = make_eval_step(self.model, cfg, self.stage,
+                                        self.rcfg, self.device)
+
+        # built after the model is on the device: worker processes are
+        # spawned, never forked from a process that holds a CUDA context
+        self.train_loader = BatchLoader(
+            self.train_ds, cfg.batch_size, tuple(cfg.dataset.train_novel_id),
+            seed=cfg.seed if cfg.loader_seed is None else cfg.loader_seed,
+            num_procs=cfg.dataset.num_workers)
+
+        self.last_preview = None   # run_eval's first image, numpy
+        # every loss_freq steps: the running means, and the latest step's
+        # own time and wait for its batch (host clock)
+        self.history: list = []
+        self.writer = None
+        try:
+            from tensorboardX import SummaryWriter
+
+            self.writer = SummaryWriter(str(self.exp_dir / "logs"))
+        except Exception:
+            pass
+        self._snapshot_provenance()
+
+    def _snapshot_provenance(self):
+        """Record the code's git revision and dirty files with the run."""
+        try:
+            root = Path(__file__).resolve().parents[2]
+            rev = subprocess.run(["git", "-C", str(root), "rev-parse",
+                                  "HEAD"], capture_output=True, text=True)
+            dirty = subprocess.run(["git", "-C", str(root), "status",
+                                    "--porcelain"], capture_output=True,
+                                   text=True)
+            with open(self.exp_dir / "provenance.txt", "w") as f:
+                f.write(f"git: {rev.stdout.strip()}\n")
+                f.write(f"dirty files:\n{dirty.stdout}")
+        except Exception:
+            pass
+
+    def _log_scalars(self, values: dict, step: int):
+        if self.writer:
+            for k, v in values.items():
+                self.writer.add_scalar(k, v, step)
+
+    def train(self, num_steps: Optional[int] = None,
+              trace_steps: Optional[tuple] = None,
+              trace_dir: Optional[str] = None,
+              eval_first: bool = False) -> TrainState:
+        """Train to step `num_steps` (cfg.num_steps by default). Running
+        means of the metrics are logged, and a checkpoint written, every
+        record.loss_freq steps and at the end; the val sweep runs every
+        record.eval_freq steps, and once before any update with
+        `eval_first`. trace_steps=(lo, hi) writes a torch.profiler trace of
+        that step window to trace_dir (default <exp>/logs/profile)."""
+        cfg = self.cfg
+        total = num_steps or cfg.num_steps
+        running: dict = {}
+        timer = StepTimer(cfg.batch_size, device=self.device)
+        wait = StepTimer(cfg.batch_size, device="cpu")
+        ckpt_dir = self.exp_dir / "ckpt"
+        saved = None
+        if eval_first and self.state.step == 0:
+            self.run_eval(0)
+        prof = None
+        for step in range(self.state.step, total):
+            if trace_steps and step == trace_steps[0] and prof is None:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if self.device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=activities)
+                prof.start()
+            wait.start()
+            batch = next(self.train_loader).to(self.device)
+            wait.stop()
+            timer.start()
+            metrics = self.train_step(batch)
+            timer.stop()
+            if prof is not None and step + 1 >= trace_steps[1]:
+                prof.stop()
+                out = Path(trace_dir or self.exp_dir / "logs" / "profile")
+                out.mkdir(parents=True, exist_ok=True)
+                prof.export_chrome_trace(
+                    str(out / f"trace_{trace_steps[0]}_{step + 1}.json"))
+                prof = None
+
+            for k, v in metrics.items():
+                running[k] = running.get(k, 0.0) + float(v)
+            if (step + 1) % cfg.record.loss_freq == 0:
+                n = cfg.record.loss_freq
+                msg = " ".join(f"{k}={v / n:.4f}"
+                               for k, v in sorted(running.items()))
+                log.info("step %d: %s (%.2f pairs/s, %.1f ms/step, "
+                         "%.1f ms waiting for data)", step + 1, msg,
+                         timer.pairs_per_s, timer.step_ms, wait.step_ms)
+                self._log_scalars({k: v / n for k, v in running.items()},
+                                  step + 1)
+                self._log_scalars({"perf/pairs_per_s": timer.pairs_per_s,
+                                   "perf/step_ms": timer.step_ms,
+                                   "perf/data_wait_ms": wait.step_ms},
+                                  step + 1)
+                self.history.append(dict(
+                    {k: v / n for k, v in running.items()}, step=step + 1,
+                    step_ms=timer.last_s * 1e3,
+                    data_wait_ms=wait.last_s * 1e3))
+                running = {}
+                saved = state_lib.save_checkpoint(ckpt_dir, self.state)
+            if (step + 1) % cfg.record.eval_freq == 0:
+                self.run_eval(step + 1)
+        if saved is None or saved.name != f"ckpt_{self.state.step}.pt":
+            state_lib.save_checkpoint(ckpt_dir, self.state)
+        return self.state
+
+    def run_eval(self, step: int, max_batches: Optional[int] = None) -> dict:
+        """Deterministic full sweep of the val set (the reference's full val
+        loop, not random batches), so val metrics compare run to run. The
+        first batch's first image is written to <exp>/show/<step>.jpg when
+        an image writer is importable."""
+        num_agg: dict = {}
+        den_agg: dict = {}
+        preview = None
+        for batch, weight in eval_batches(
+                self.val_ds, self.cfg.batch_size,
+                tuple(self.cfg.dataset.val_novel_id),
+                max_batches=max_batches
+                or self.cfg.dataset.eval_max_batches):
+            metrics, img_pred = self.eval_step(batch, weight)
+            for k, (num, den) in metrics.items():
+                num_agg[k] = num_agg.get(k, 0.0) + float(num)
+                den_agg[k] = den_agg.get(k, 0.0) + float(den)
+            if preview is None and img_pred is not None:
+                preview = img_pred[0].float().cpu().numpy()
+        final = {k: num_agg[k] / max(den_agg[k], 1e-12) for k in num_agg}
+        msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(final.items()))
+        log.info("eval @%d: %s", step, msg)
+        self._log_scalars(final, step)
+        self.last_preview = preview
+        if preview is not None:
+            try:
+                write_image(self.exp_dir / "show" / f"{step:08d}.jpg",
+                            preview)
+            except Exception as e:
+                log.warning("eval preview write failed: %s", e)
+        return final
+
+    def close(self):
+        self.train_loader.close()
+        if self.writer:
+            self.writer.close()

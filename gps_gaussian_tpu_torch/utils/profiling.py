@@ -29,6 +29,7 @@ class StepTimer:
         self.alpha = alpha
         self.device = resolve_device(device)
         self.ema_s: Optional[float] = None
+        self.last_s: Optional[float] = None   # the latest step, not smoothed
         self._t0: Optional[float] = None
 
     def _sync(self):
@@ -44,6 +45,7 @@ class StepTimer:
             return
         self._sync()
         dt = time.perf_counter() - self._t0
+        self.last_s = dt
         self.ema_s = (dt if self.ema_s is None
                       else self.alpha * dt + (1 - self.alpha) * self.ema_s)
         self._t0 = None

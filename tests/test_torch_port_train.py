@@ -221,7 +221,8 @@ def test_validate_group_scales_raises_on_unknown_key():
 
 def test_stage1_step_and_eval_steps_run():
     """Stage 1 is the same step with only the sequence loss; the eval steps
-    return (numerator, denominator) pairs, and stage 1 returns no image."""
+    return (numerator, denominator) pairs, and stage 1 returns the
+    point-splat preview when the batch has a novel view, else no image."""
     cfg = tconfig.load_config(None, **dict(NARROW, stage="stage1"))
     model = trainer.make_model(cfg, with_gs=False)
     init_weights(model, torch.Generator().manual_seed(1))
@@ -246,9 +247,14 @@ def test_stage1_step_and_eval_steps_run():
                           "train_3px"}
     assert second["loss"] < first["loss"]
 
-    metrics, img = trainer.make_eval_step(model, cfg, "stage1", rcfg,
-                                          device="cpu")(batch, torch.ones(2))
-    assert img is None and set(metrics) == {"val_epe", "val_1px"}
+    eval_step = trainer.make_eval_step(model, cfg, "stage1", rcfg,
+                                       device="cpu")
+    metrics, img = eval_step(batch, torch.ones(2))
+    assert set(metrics) == {"val_epe", "val_1px"}
+    assert img.shape == (2, RES, RES, 3) and img.min() >= 0 \
+        and img.max() <= 1
+    assert eval_step(dataclasses.replace(batch, novel=None),
+                     torch.ones(2))[1] is None
 
     cfg2 = tconfig.load_config(None, **dict(NARROW, stage="stage2",
                                             remat=True))

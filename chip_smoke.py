@@ -37,8 +37,23 @@ Phases, one line of output each:
   9. trainer - the Trainer at full width on SilhouetteDataset: stage 2
                (3 steps, the val sweep, a resumed run's step) and stage 1 at
                configs/stage1.yaml width (2 steps, the point-splat preview)
-Each of phases 4, 5, 7, 8 and 9 zeroes the launch counts just before it
-drives its path and reads them just after. The synthetic scans of phases 7
+ 10. staircase - the JAX package's staircase configuration (bench.py) on
+               its 1024^2 scene, forward and backward, against the uniform-K
+               path: pair-sort lengths, times, the one-class schedule
+               bit-equal, ellipse against circle rects, both kernels against
+               their plain versions on its pairs; then the trained frame of
+               phase 8 at 2048^2 with a schedule sized from its spans
+ 11. sharded-render - that frame rendered band by band for 2 and 4 ranks:
+               against rasterize at caps that do not bind, and the drops per
+               band at the configuration's caps
+ 12. ddp      - two spawned ranks in one gloo group, both on this card: two
+               stage-2 steps at full width, batch 1 each, against one
+               process at batch 2; rasterize_tile_sharded against the
+               band-by-band render; a world-2 Trainer whose rank-0
+               checkpoint resumes at world 1
+Each of phases 4, 5 and 7-12 zeroes the launch counts just before it
+drives its path and reads them just after (the ranks of phase 12 in their
+own processes, which send their counts back). The synthetic scans of phases 7
 and 8 render in worker processes while phases 1-3 run.
 With --profile DIR, one serving frame (the forward and one view) and one
 training step run under torch.profiler: each prints its device busy share
@@ -71,6 +86,7 @@ from gps_gaussian_tpu_torch.data.loader import collate
 from gps_gaussian_tpu_torch.data.thuman import DatasetConfig
 from gps_gaussian_tpu_torch.geometry import cameras
 from gps_gaussian_tpu_torch.infer.freeview import (FreeviewRenderer,
+                                                   compact_valid,
                                                    load_renderer)
 from gps_gaussian_tpu_torch.kernels import build
 from gps_gaussian_tpu_torch.kernels.rasterizer import (
@@ -79,7 +95,9 @@ from gps_gaussian_tpu_torch.kernels.rasterizer.composite import (
     composite_bwd, composite_bwd_plain, composite_fwd, composite_fwd_plain,
     kernel_occupancy)
 from gps_gaussian_tpu_torch.kernels.rasterizer.pair_sort import (
-    sort_pairs, stack_rows)
+    sort_pairs, stack_rows, staircase_pairs, tile_rects)
+from gps_gaussian_tpu_torch.kernels.rasterizer.sharded import (render_band,
+                                                               render_bands)
 from gps_gaussian_tpu_torch.kernels.rasterizer.preprocess import \
     project_gaussians
 from gps_gaussian_tpu_torch.kernels.rasterizer.reference import \
@@ -90,9 +108,10 @@ from gps_gaussian_tpu_torch.testing import (SilhouetteDataset,
                                             scene_camera,
                                             silhouette_stereo_batch,
                                             silhouette_train_batch,
-                                            synth_scans)
+                                            spawn_ranks, synth_scans)
 from gps_gaussian_tpu_torch.train.config import load_config
-from gps_gaussian_tpu_torch.train.state import create_state
+from gps_gaussian_tpu_torch.train.state import (create_state,
+                                                onecycle_linear)
 from gps_gaussian_tpu_torch.train.trainer import (Trainer, make_model,
                                                   make_raster_config,
                                                   make_train_step)
@@ -173,6 +192,24 @@ OPS_PER_EVAL = 25
 # the nine sums over the tile's pixels (9)
 BWD_OPS_PER_WALK = 20
 BWD_OPS_PER_BLEND = 46
+# bench.py bench_raster_config() (:96-101): the JAX package's staircase on
+# build_scene(1024), its schedule sized from that scene's ellipse spans
+BENCH_RASTER = dict(max_tiles_per_gaussian=9, max_per_tile=2048,
+                    fg_cap=352_256, pair_budget=1_572_864)
+BENCH_SCHEDULE = ((9, 6144), (6, 56320), (4, 217088), (2, 65536), (1, 7168))
+# the classes of a schedule sized from a frame's spans (K <= 63)
+STAIR_KS = (63, 48, 32, 24, 16, 12, 8, 6, 4, 3, 2, 1)
+GRAD_FIELDS = ("xyz", "rot", "scale", "opacity", "rgb")
+DDP_TRAINER_STEPS = 3  # the world-2 Trainer's steps: the first warms up
+# world-2 metrics against one process at batch 2: the JAX package's 5e-3
+# between its sharded and one-device steps (valid-masked metrics are
+# per-rank means averaged), plus 1e-4 absolute: a batch-2 render packs each
+# pair's depth into 15 bits over both samples' range, a batch-1 render into
+# 16 over its own (pack_sort_key), so near-equal depths blend in another
+# order and the images differ slightly; SSIM against a random target is
+# about 0.0026 and moves by 5e-5 (seen at this width, f32)
+DDP_RTOL = 5e-3
+DDP_ATOL = 1e-4
 FWD_SRC = "gps_gaussian_tpu_torch/csrc/composite_fwd.cu"
 BWD_SRC = "gps_gaussian_tpu_torch/csrc/composite_bwd.cu"
 PALLAS = "gps_gaussian_tpu/kernels/rasterizer/pallas_kernel.py"
@@ -211,9 +248,9 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def kernel_inputs(gauss, camera, rcfg, view: int = 0):
-    """The (props, start, count) that rasterize() gives composite_fwd for
-    one view, rebuilt from the same public steps."""
+def projected_rows(gauss, camera, rcfg, view: int = 0):
+    """The (1, N, 11) rows that rasterize() sorts for one view: sample 0's
+    Gaussians compacted to rcfg.fg_cap rows and projected."""
     if rcfg.fg_cap is not None:
         (xyz, rot, scale, opacity, rgb, valid), _ = \
             compact_gaussian_inputs(gauss, 0, rcfg.fg_cap)
@@ -225,12 +262,24 @@ def kernel_inputs(gauss, camera, rcfg, view: int = 0):
                           camera.view[view], camera.proj[view],
                           camera.tanfovx[view], camera.tanfovy[view],
                           camera.height, camera.width)
-    stacked = stack_rows(p.mean2d, p.conic, p.opacity, p.color, p.depth,
-                         p.radius)[None]
-    props, start, count, _, _ = sort_pairs(
-        stacked, camera.height, camera.width, rcfg.max_tiles_per_gaussian,
-        rcfg.max_per_tile, rcfg.pair_budget)
-    return props, start, count
+    return stack_rows(p.mean2d, p.conic, p.opacity, p.color, p.depth,
+                      p.radius)[None]
+
+
+def kernel_inputs(gauss, camera, rcfg, view: int = 0):
+    """The (props, start, count) that rasterize() gives composite_fwd for
+    one view, rebuilt from the same public steps (either binning)."""
+    stacked = projected_rows(gauss, camera, rcfg, view)
+    if rcfg.span_schedule is not None:
+        props, start, count, _, _ = staircase_pairs(
+            stacked, camera.height, camera.width, rcfg.span_schedule,
+            rcfg.max_per_tile, rcfg.pair_budget, rcfg.ellipse_rects)
+    else:
+        props, start, count, _, _ = sort_pairs(
+            stacked, camera.height, camera.width,
+            rcfg.max_tiles_per_gaussian, rcfg.max_per_tile,
+            rcfg.pair_budget)
+    return props.detach(), start, count
 
 
 def compare_composite(props, start, count, tiles_y, tiles_x,
@@ -983,7 +1032,8 @@ def phase_trained_serving(dev, ds: dict) -> dict:
     check_fwd(err_rgb, err_t, "on trained traffic")
     check(launches.get("composite_fwd", 0) == len(ratios),
           "composite_fwd once per view")
-    return {"launches": launches, "err": max(err_rgb, err_t)}
+    return {"launches": launches, "err": max(err_rgb, err_t), "gauss": gauss,
+            "cam": cams[1], "rcfg": renderer.rcfg, "drops": drops[1][0]}
 
 
 def phase_trainer(dev, exp_root: str) -> dict:
@@ -1069,6 +1119,386 @@ def phase_trainer(dev, exp_root: str) -> dict:
     return {"launches": sum_launches(launches.values())}
 
 
+def bench_camera(res: int, dev):
+    """bench.py's camera for build_scene (:108-116): 2 m in front, the
+    principal point 25 px below the centre."""
+    K = np.array([[0.8 * res, 0, res / 2],
+                  [0, 0.8 * res, res / 2 + 25], [0, 0, 1]], np.float32)
+    E = np.eye(3, 4, dtype=np.float32)
+    E[1, 3] = -0.85
+    E[2, 3] = 2.0
+    return cameras.make_novel_camera(
+        [cameras.camera_from_intr_extr(K, E, res, res)], res, res, dev)
+
+
+def grad_render(g, cam, bg, cfg, dev, cot=None):
+    """rasterize() of g, and with cotangents (image, T) its backward too:
+    (image, aux, the gradients of xyz rot scale opacity rgb or None)."""
+    if cot is None:
+        with torch.no_grad():
+            img, aux = rasterize(g, cam, bg, cfg, device=dev)
+        return img, aux, None
+    leaves = {k: getattr(g, k).clone().requires_grad_(True)
+              for k in GRAD_FIELDS}
+    img, aux = rasterize(dataclasses.replace(g, **leaves), cam, bg, cfg,
+                         device=dev)
+    ((img * cot[0]).sum() + (aux.transmittance * cot[1]).sum()).backward()
+    return img.detach(), aux, [leaves[k].grad for k in GRAD_FIELDS]
+
+
+def counters(aux) -> tuple:
+    return tuple(int(getattr(aux, f).sum()) for f in
+                 ("num_dropped", "num_fg_dropped", "num_pair_dropped"))
+
+
+def span_schedule_for(spans: torch.Tensor, rows: int) -> tuple:
+    """A staircase schedule that gives every row the slots of its span (up
+    to 63): one class per K of STAIR_KS, each counting the live rows whose
+    span lies in (next K, K]. `spans` are uncapped tile spans."""
+    s = torch.clamp(spans[spans > 0], max=STAIR_KS[0])
+    sched = []
+    for k, lower in zip(STAIR_KS, STAIR_KS[1:] + (0,)):
+        c = int(((s > lower) & (s <= k)).sum())
+        if c:
+            sched.append((k, c))
+    check(sum(c for _, c in sched) <= rows, "the schedule covers the rows")
+    return tuple(sched)
+
+
+def span_histogram(spans: torch.Tensor) -> str:
+    live = spans[spans > 0]
+    edges = (1, 2, 4, 8, 16, 32, 63, 128, 256)
+    parts, lo = [], 0
+    for hi in edges:
+        parts.append(f"{lo + 1}-{hi}: {int(((live > lo) & (live <= hi)).sum())}")
+        lo = hi
+    parts.append(f">{lo}: {int((live > lo).sum())}")
+    return ", ".join(parts) + f" (max {int(live.max())})"
+
+
+def phase_staircase(dev, frame: dict, res: int = 1024) -> dict:
+    """The JAX package's staircase configuration (bench.py) on its 1024^2
+    scene, against the uniform-K path; then the trained frame at 2048^2
+    with a schedule sized from its span histogram."""
+    arrays = build_scene(res)
+    g = FlatGaussians(**{k: torch.as_tensor(a, device=dev)[None] for k, a in
+                         zip(("xyz", "rot", "scale", "opacity", "rgb",
+                              "valid"), arrays)})
+    cam = bench_camera(res, dev)
+    bg = torch.zeros(3, device=dev)
+    stair = RasterizeConfig(**BENCH_RASTER, ellipse_rects=True,
+                            span_schedule=BENCH_SCHEDULE)
+    legacy = RasterizeConfig(**BENCH_RASTER)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cot = (torch.randn((1, res, res, 3), generator=gen, device=dev),
+           torch.randn((1, res, res, 1), generator=gen, device=dev))
+
+    grad_render(g, cam, bg, stair, dev, cot)          # warm-up
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    img_s, aux_s, g_s = grad_render(g, cam, bg, stair, dev, cot)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    img_l, aux_l, g_l = grad_render(g, cam, bg, legacy, dev, cot)
+    ms = {name: (event_ms(lambda: grad_render(g, cam, bg, cfg, dev), 5),
+                 event_ms(lambda: grad_render(g, cam, bg, cfg, dev, cot), 3))
+          for name, cfg in (("uniform K 9", legacy), ("staircase", stair))}
+    fg_cap = BENCH_RASTER["fg_cap"]
+    sort_len = {"uniform K 9": fg_cap * BENCH_RASTER["max_tiles_per_gaussian"],
+                "staircase": sum(k * c for k, c in BENCH_SCHEDULE)}
+    props, start, count = kernel_inputs(g, cam, stair)
+    live = {"uniform K 9": int(kernel_inputs(g, cam, legacy)[2].sum()),
+            "staircase": int(count.sum())}
+
+    # a one-class schedule is the uniform path, bit for bit
+    one = RasterizeConfig(**BENCH_RASTER, span_schedule=((9, fg_cap),))
+    img_1, aux_1, g_1 = grad_render(g, cam, bg, one, dev, cot)
+    bit_equal = (torch.equal(img_1, img_l)
+                 and torch.equal(aux_1.transmittance, aux_l.transmittance)
+                 and all(torch.equal(a, b) for a, b in zip(g_1, g_l))
+                 and counters(aux_1) == counters(aux_l))
+    # ellipse rectangles against circles, one class of 16
+    circle = RasterizeConfig(max_per_tile=2048, fg_cap=fg_cap,
+                             span_schedule=((16, fg_cap),))
+    ellipse = dataclasses.replace(circle, ellipse_rects=True)
+    pairs_ce = [int(kernel_inputs(g, cam, c)[2].sum())
+                for c in (circle, ellipse)]
+    diff_ce = float((grad_render(g, cam, bg, circle, dev)[0]
+                     - grad_render(g, cam, bg, ellipse, dev)[0]).abs().max())
+
+    # both kernels against their plain versions on the staircase's pairs
+    ty = tx = res // 16
+    err_rgb, err_t, work, _ = compare_composite(props, start, count, ty, tx)
+    out = composite_fwd(props, start, count, ty, tx)
+    g_out = torch.randn(out.shape, generator=gen, device=dev)
+    err, mag, same, walked, blended, _, stray, _ = compare_composite_bwd(
+        props, start, count, out, g_out, ty, tx)
+    print(f"[staircase] bench.py bench_raster_config() on build_scene("
+          f"{res}) (the camera of bench.py:108-116, {int(g.valid.sum())} fg "
+          f"gaussians, fg_cap {fg_cap}): schedule {BENCH_SCHEDULE}, ellipse "
+          f"rects; pair-sort length {sort_len} (bench.py's docstring: 2.82M "
+          f"uniform, 1.39M staircase); live pairs {live}; drops (dup, fg, "
+          f"pair) staircase {counters(aux_s)} uniform {counters(aux_l)}; "
+          f"render ms forward / forward+backward (CUDA events) "
+          f"{ {k: (round(a, 3), round(b, 3)) for k, (a, b) in ms.items()} }; "
+          f"one-class schedule ((9, {fg_cap}),) bit-equal to uniform K 9 "
+          f"(image, T, gradients, counters): {bit_equal}; one class of 16, "
+          f"ellipse vs circle: live pairs {pairs_ce[1]} vs {pairs_ce[0]}, "
+          f"max image difference {diff_ce:.4f} (must be < 0.05); on the "
+          f"staircase's pairs ({work} evaluations, {walked} walked and "
+          f"{blended} blended backward): composite_fwd max abs err rgb "
+          f"{err_rgb:.3g} T {err_t:.3g}, composite_bwd max abs err per row "
+          f"{fmt(err)} beside {fmt(mag)}, two launches bit-equal {same}, "
+          f"stray {stray}; launches {launches}", flush=True)
+    check(bit_equal, "the one-class staircase is the uniform path's bits")
+    check(pairs_ce[1] <= pairs_ce[0] and diff_ce < 0.05,
+          "ellipse rects: no more pairs than circles, image within 0.05")
+    check(bool(torch.isfinite(img_s).all())
+          and all(bool(torch.isfinite(x).all()) for x in g_s),
+          "finite staircase image and gradients")
+    check(launches.get("composite_fwd", 0) == 1
+          and launches.get("composite_bwd", 0) == 1,
+          "the staircase render launched both kernels once")
+    check_fwd(err_rgb, err_t, "on the staircase's pairs")
+    check(same and stray == 0, "composite_bwd on the staircase's pairs")
+    bwd_err = check_bwd_rows(err, mag, "staircase")
+
+    # the trained frame at 2048^2: a schedule from its own span histogram
+    gauss, cam2, rcfg2 = frame["gauss"], frame["cam"], frame["rcfg"]
+    stacked = projected_rows(gauss, cam2, rcfg2)
+    tiles = -(-cam2.height // 16)
+    spans = tile_rects(stacked[0, :, 0:2], stacked[0, :, 10], tiles, tiles,
+                       16, 1 << 30)[4]
+    sched = span_schedule_for(spans, stacked.shape[1])
+    cfg2 = dataclasses.replace(rcfg2, span_schedule=sched)
+    img_u, aux_u, _ = grad_render(gauss, cam2, bg, rcfg2, dev)
+    img_t, aux_t, _ = grad_render(gauss, cam2, bg, cfg2, dev)
+    ms2 = [event_ms(lambda: grad_render(gauss, cam2, bg, c, dev), 5)
+           for c in (rcfg2, cfg2)]
+    live2 = [int(kernel_inputs(gauss, cam2, c)[2].sum())
+             for c in (rcfg2, cfg2)]
+    print(f"[staircase] the [trained-serving] frame, view 0.5 at "
+          f"{cam2.height}^2, {int((spans > 0).sum())} live rows of "
+          f"{stacked.shape[1]}: span histogram {span_histogram(spans)}; "
+          f"schedule from it {sched}; pair-sort length uniform K "
+          f"{rcfg2.max_tiles_per_gaussian} {stacked.shape[1] * rcfg2.max_tiles_per_gaussian}"
+          f" vs staircase {sum(k * c for k, c in sched)}; live pairs "
+          f"{live2[0]} vs {live2[1]}; drops (dup, fg, pair) uniform "
+          f"{counters(aux_u)} (the same view in [trained-serving]: "
+          f"{frame['drops']}) vs staircase {counters(aux_t)}; render ms "
+          f"{ms2[0]:.3f} vs {ms2[1]:.3f}; covered share "
+          f"{float((aux_u.transmittance < 0.5).float().mean()):.4f} vs "
+          f"{float((aux_t.transmittance < 0.5).float().mean()):.4f}",
+          flush=True)
+    check(counters(aux_t)[0] <= counters(aux_u)[0],
+          "the sized staircase drops no more duplicates than K 16")
+    check(bool(torch.isfinite(img_t).all()), "finite staircase image")
+    return {"launches": launches, "err": max(err_rgb, err_t),
+            "bwd_err": bwd_err}
+
+
+def phase_sharded_render(dev, frame: dict) -> dict:
+    """The trained frame at 2048^2 rendered band by band (render_band) for
+    2 and 4 ranks on the one card: at caps that do not bind against
+    rasterize, at the configuration's caps with the drops per band."""
+    gauss, cam, rcfg = frame["gauss"], frame["cam"], frame["rcfg"]
+    bg = torch.zeros(3, device=dev)
+    # caps that do not bind: the groups of 8 rows with a live row, every
+    # rectangle whole, every tile's pairs, every band all rows
+    groups = int((gauss.valid[0].reshape(-1, 8) > 0).any(1).sum())
+    live, _ = compact_valid(gauss, 8 * groups)
+    stacked = projected_rows(live, cam, RasterizeConfig())
+    tiles = -(-cam.height // 16)
+    k_all = int(tile_rects(stacked[0, :, 0:2], stacked[0, :, 10], tiles,
+                           tiles, 16, 1 << 30)[4].max())
+    _, _, count = kernel_inputs(live, cam, RasterizeConfig(
+        max_tiles_per_gaussian=k_all, max_per_tile=1 << 30))
+    free = RasterizeConfig(max_tiles_per_gaussian=k_all,
+                           max_per_tile=int(count.max()),
+                           fg_cap=8 * groups)
+    img_1, aux_1, _ = grad_render(live, cam, bg, free, dev)
+    build.reset_launch_counts()
+    worlds = {}
+    for world in (2, 4):
+        (img_w, aux_w), ms = sync_ms(lambda: render_bands(
+            live, cam, bg, free, world, device=dev))
+        worlds[world] = (img_w, aux_w, ms)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    errs = {w: (float((img_w - img_1).abs().max()),
+                float((aux_w.transmittance - aux_1.transmittance)
+                      .abs().max()), counters(aux_w))
+            for w, (img_w, aux_w, _) in worlds.items()}
+    ms_1 = sync_ms(lambda: rasterize(live, cam, bg, free, device=dev))[1]
+
+    # the configuration's caps on the frame as served
+    per_band, sums = {}, {}
+    for world in (2, 4):
+        bands = [counters(render_band(gauss, cam, bg, rcfg, r, world,
+                                      device=dev)[1]) for r in range(world)]
+        per_band[world] = bands
+        sums[world] = tuple(map(sum, zip(*bands)))
+    whole = counters(rasterize(gauss, cam, bg, rcfg, device=dev)[1])
+    print(f"[sharded-render] the [trained-serving] frame, view 0.5 at "
+          f"{cam.height}^2, band by band on one card. Caps that do not bind "
+          f"({8 * groups} rows, max_tiles_per_gaussian {k_all} = the widest "
+          f"span, max_per_tile {int(count.max())}): unsharded counters "
+          f"{counters(aux_1)}, {ms_1:.2f} ms; per world (max abs err image, "
+          f"T, counters, ms): "
+          f"{ {w: (e[0], e[1], e[2], round(worlds[w][2], 2)) for w, e in errs.items()} } "
+          f"(tolerance 1e-5, equal counters); at the configuration's caps "
+          f"(K {rcfg.max_tiles_per_gaussian}, max_per_tile "
+          f"{rcfg.max_per_tile}, band cap by default), drops (dup, fg, pair)"
+          f" per band {per_band}, summed {sums}, unsharded {whole}; "
+          f"launches {launches}", flush=True)
+    check(counters(aux_1) == (0, 0, 0), "the free caps do not bind")
+    for w, (e_img, e_t, c) in errs.items():
+        check(e_img <= TOL and e_t <= TOL and c == counters(aux_1),
+              f"{w} bands against rasterize")
+    check(launches.get("composite_fwd", 0) == 6,
+          "composite_fwd once per band")
+    return {"launches": launches}
+
+
+def phase_ddp(dev, frame: dict, exp_root: str) -> dict:
+    """Two spawned ranks in one gloo group, both on cuda:0: two stage-2 steps
+    at batch 1 each against one process at batch 2, the tile-sharded render
+    against the band-by-band one, and a world-2 Trainer whose rank-0
+    checkpoint resumes at world 1. The steps compared run f32 convolutions,
+    so that only the data parallelism and the render's batch dependence
+    (DDP_ATOL) part them from one process; the Trainer runs the
+    configuration's bf16 and gives its step times."""
+    cfg = load_config(None, **STAGE2_OVERRIDES)
+    cfg = dataclasses.replace(cfg, raft=dataclasses.replace(
+        cfg.raft, mixed_precision=False))
+    model = make_model(cfg, with_gs=True)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    init = os.path.join(exp_root, "ddp_init.pt")
+    torch.save(model.state_dict(), init)
+    batch_spec = ("silhouette_train_batch", dict(
+        batch=cfg.batch_size, res=cfg.dataset.src_res,
+        novel_res=2 * cfg.dataset.src_res, fg_frac=0.2, seed=SEED))
+    # the one-process reference: the same two steps at batch 2
+    state = create_state(cfg, model, device=dev)
+    step = make_train_step(model, cfg, "stage2", make_raster_config(cfg),
+                           state, device=dev)
+    batch = silhouette_train_batch(**batch_spec[1], device=dev)
+    ref = [{k: float(v) for k, v in step(batch).items()} for _ in range(2)]
+    ref_params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+
+    gauss = dataclasses.replace(frame["gauss"], **{
+        f.name: getattr(frame["gauss"], f.name).cpu()
+        for f in dataclasses.fields(frame["gauss"])})
+    cam = frame["cam"].to("cpu")
+    rank_dev = "cuda:0" if dev.type == "cuda" else "cpu"
+    tcfg = config_with(STAGE2_OVERRIDES, loss_freq=1, eval_freq=10 ** 9)
+    tcfg = dataclasses.replace(tcfg, dataset=dataclasses.replace(
+        tcfg.dataset, num_workers=0))
+    res = tcfg.dataset.src_res
+    w2_dir = os.path.join(exp_root, "ddp_trainer")
+    payloads = [
+        ("rank_train_steps", dict(cfg=cfg, init=init, batch=batch_spec,
+                                  steps=2, device=rank_dev,
+                                  out=os.path.join(exp_root, "ddp_w2.pt"))),
+        ("rank_render", dict(gauss=gauss, camera=cam, bg=torch.zeros(3),
+                             cfg=frame["rcfg"], device=rank_dev)),
+        ("rank_trainer", dict(
+            cfg=tcfg, train_ds=SilhouetteDataset(res, 2 * res, 4, seed=SEED),
+            val_ds=SilhouetteDataset(res, 2 * res, 2, seed=SEED + 1),
+            device=rank_dev, steps=DDP_TRAINER_STEPS, exp_dir=w2_dir,
+            out=os.path.join(exp_root, "ddp_trainer_w2.pt")))]
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("rank_sequence", 2, dict(steps=payloads,
+                                                 device=rank_dev),
+                        exp_root, timeout=600)
+    secs = time.perf_counter() - t0
+    steps_out = [r[0] for r in ranks]
+    render_out = [r[1] for r in ranks]
+    trainer_out = [r[2] for r in ranks]
+    launches = sum_launches(out["launches"] for r in ranks for out in r)
+
+    # the steps: metrics and parameters against the one-process run
+    w2 = torch.load(os.path.join(exp_root, "ddp_w2.pt"))
+    lr_sum = sum(onecycle_linear(cfg.lr, cfg.num_steps + 100)(i)
+                 for i in range(2))
+    diffs = torch.cat([(w2[k] - v).abs().reshape(-1)
+                       for k, v in ref_params.items()])
+    within = {f: float((diffs <= f * lr_sum).float().mean())
+              for f in (0.02, 0.1)}
+    # each metric's distance beyond DDP_RTOL relative, in units of
+    # DDP_ATOL: at most 1 passes
+    metric_err = max(max(abs(a[k] - b[k]) - DDP_RTOL * abs(b[k]), 0.0)
+                     / DDP_ATOL
+                     for a, b in zip(steps_out[0]["metrics"], ref)
+                     for k in b)
+    # the render: the group's against the band-by-band one
+    img_b, aux_b = render_bands(frame["gauss"], frame["cam"],
+                                torch.zeros(3, device=dev), frame["rcfg"], 2,
+                                device=dev)
+    render_same = all(torch.equal(o["img"], img_b.cpu())
+                      and torch.equal(o["trans"], aux_b.transmittance.cpu())
+                      and tuple(o["counters"]) == counters(aux_b)
+                      for o in render_out)
+    # the Trainer: rank 0's checkpoint resumed at world 1
+    resumed = Trainer(dataclasses.replace(
+        tcfg, restore_ckpt=os.path.join(w2_dir, "ckpt")),
+        exp_dir=os.path.join(exp_root, "ddp_resumed"),
+        dataset=SilhouetteDataset(res, 2 * res, 4, seed=SEED),
+        val_dataset=SilhouetteDataset(res, 2 * res, 2, seed=SEED + 1),
+        device=dev)
+    try:
+        saved = torch.load(os.path.join(exp_root, "ddp_trainer_w2.pt"))
+        restored = resumed.state.step == DDP_TRAINER_STEPS and all(
+            torch.equal(v.cpu(), saved[k])
+            for k, v in resumed.model.state_dict().items())
+    finally:
+        resumed.close()
+    keys = ("loss", "l1", "ssim", "flow_loss", "grad_norm")
+    trainer_ms = [[(round(row["step_ms"], 1), round(row["data_wait_ms"], 1))
+                   for row in o["history"]] for o in trainer_out]
+    print(f"[ddp] 2 spawned ranks, one gloo group, both on cuda:0, stage2 "
+          f"width, {secs:.1f} s with spawning: f32 steps at batch 1 per rank "
+          f"(global batch {cfg.batch_size}), step ms per rank "
+          f"{[[round(m, 1) for m in o['step_ms']] for o in steps_out]}, peak "
+          f"memory per rank "
+          f"{[o['peak_gib'] and round(o['peak_gib'], 2) for o in steps_out]}"
+          f" GiB; metrics "
+          f"{[{k: round(m[k], 5) for k in keys} for m in steps_out[0]['metrics']]}"
+          f" vs one process at batch 2 "
+          f"{[{k: round(m[k], 5) for k in keys} for m in ref]} (tolerance "
+          f"{DDP_RTOL} relative + {DDP_ATOL} absolute; the largest excess "
+          f"over the relative part is {metric_err:.3f} of the absolute); "
+          f"parameters after 2 steps: largest difference {float(diffs.max()):.3g}"
+          f" against the two steps' learning rates {lr_sum:.3g}, share within"
+          f" 2% of them {within[0.02]:.4f}, within 10% {within[0.1]:.4f}; "
+          f"rasterize_tile_sharded on the group equals the band-by-band "
+          f"render bit for bit: {render_same} (counters "
+          f"{render_out[0]['counters']}); world-2 Trainer: checkpoints "
+          f"{trainer_out[0]['ckpts']}, history "
+          f"{[{k: round(row[k], 4) for k in keys} for row in trainer_out[0]['history']]}"
+          f", bf16 step ms and data wait ms per rank {trainer_ms}, peak "
+          f"memory per rank "
+          f"{[o['peak_gib'] and round(o['peak_gib'], 2) for o in trainer_out]}"
+          f" GiB, val "
+          f"{trainer_out[0]['val']}, resumed at world 1 with the same "
+          f"parameters: {restored}; launches {launches}", flush=True)
+    check(all(o["metrics"] == steps_out[0]["metrics"] for o in steps_out),
+          "every rank reduces its metrics alike")
+    check(metric_err <= 1.0, "world-2 metrics against one process")
+    check(float(diffs.max()) <= 1.01 * lr_sum * 3.2 and within[0.1] >= 0.9,
+          "world-2 parameters against one process")
+    check(render_same, "the group's render is the band-by-band render")
+    check(trainer_out[0]["ckpts"] == [f"ckpt_{i + 1}.pt" for i in
+                                      range(DDP_TRAINER_STEPS)] and restored,
+          "rank-0 checkpoints resume at world 1")
+    check(launches.get("composite_fwd", 0) == 2 * (2 + 1 + DDP_TRAINER_STEPS)
+          and launches.get("composite_bwd", 0) == 2 * (2 + DDP_TRAINER_STEPS),
+          "every rank launched both kernels in each step and the render")
+    return {"launches": launches}
+
+
 def main(argv) -> int:
     if argv and (len(argv) != 2 or argv[0] != "--profile"):
         print("usage: python3 chip_smoke.py [--profile DIR]", file=sys.stderr)
@@ -1110,15 +1540,22 @@ def main(argv) -> int:
         phase_profile(serv, train, argv[1])
     main_f = phase_main_shape(serv)
     main_b = phase_main_shape_training(train)
+    # the training state (13 GiB at batch 2) is not needed again
+    del train["step"], train["batch"]
+    torch.cuda.empty_cache()
     exp_root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         trained = phase_trained(dev, datasets, exp_root)
         trained_serv = phase_trained_serving(dev, datasets)
         trainer = phase_trainer(dev, exp_root)
+        stair = phase_staircase(dev, trained_serv)
+        sharded = phase_sharded_render(dev, trained_serv)
+        ddp = phase_ddp(dev, trained_serv, exp_root)
     finally:
         shutil.rmtree(exp_root, ignore_errors=True)
     paths = {"serving": serv, "training": train, "trained": trained,
-             "trained_serving": trained_serv, "trainer": trainer}
+             "trained_serving": trained_serv, "trainer": trainer,
+             "staircase": stair, "sharded_render": sharded, "ddp": ddp}
 
     def launches(name):
         per = {f"launches_{path}": out["launches"].get(name, 0)
@@ -1129,13 +1566,13 @@ def main(argv) -> int:
         "name": "composite_fwd", "route": "cuda", "source": FWD_SRC,
         "replaces": f"{PALLAS}:767", **launches("composite_fwd"),
         "max_abs_err": max(k512["err"], main_f["err"], main_b["fwd_err"],
-                           trained_serv["err"]),
+                           trained_serv["err"], stair["err"]),
         "ms": main_f["ms"], "plain_ms": main_f["plain_ms"],
         "bound_ms": main_f["bound_ms"], "bound_by": main_f["bound_by"],
         "library_ms": None}, {
         "name": "composite_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": f"{PALLAS}:836", **launches("composite_bwd"),
-        "max_abs_err": max(k512["bwd_err"], main_b["err"]),
+        "max_abs_err": max(k512["bwd_err"], main_b["err"], stair["bwd_err"]),
         "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
         "library_ms": None}]

@@ -1,5 +1,17 @@
 """What the four command-line tools share: flags, config overrides, the
-test dataset and the renderer."""
+test dataset and the renderer.
+
+Every tool joins the torch.distributed group that `torchrun` describes
+(train/sharding.py init_distributed; a plain `python -m` run is one
+process), one rank per card:
+
+    torchrun --nproc_per_node 4 -m gps_gaussian_tpu_torch.cli.train_stage2 \
+        --config configs/stage2.yaml --data_root /path/to/data
+
+The training tools then train data-parallel, the global batch split over
+the ranks; the test tools shard each view's tile rows over the ranks with
+`--shard_render`. Rank 0 alone writes files.
+"""
 
 from __future__ import annotations
 
@@ -32,7 +44,10 @@ def train_main(stage: str, default_config: str, argv=None):
         format="%(asctime)s %(levelname)s %(name)s %(message)s")
 
     from gps_gaussian_tpu_torch.train.config import load_config, save_config
+    from gps_gaussian_tpu_torch.train.sharding import init_distributed
     from gps_gaussian_tpu_torch.train.trainer import Trainer
+
+    group, device = init_distributed(args.device)
 
     overrides = {}
     if args.data_root:
@@ -47,8 +62,9 @@ def train_main(stage: str, default_config: str, argv=None):
         overrides["record"] = {"eval_freq": args.eval_freq}
     cfg = load_config(args.config, stage=stage, **overrides)
 
-    trainer = Trainer(cfg, exp_dir=args.exp_dir, device=args.device)
-    save_config(cfg, str(trainer.exp_dir / "cfg.json"))
+    trainer = Trainer(cfg, exp_dir=args.exp_dir, device=device, group=group)
+    if trainer.is_main:
+        save_config(cfg, str(trainer.exp_dir / "cfg.json"))
     try:
         trainer.train(eval_first=args.eval_first)
     finally:
@@ -66,17 +82,25 @@ def infer_parser() -> argparse.ArgumentParser:
     ap.add_argument("--src_view", type=int, nargs=2, default=(0, 1))
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--shard_render", action="store_true",
+                    help="shard each view's tile rows over the ranks of a "
+                         "torchrun launch")
     return ap
 
 
 def load_test_renderer(args):
-    """(renderer on the checkpoint's weights, the test dataset)."""
+    """(renderer on the checkpoint's weights, the test dataset, whether this
+    process writes the images: rank 0 alone)."""
     logging.basicConfig(level=logging.INFO)
 
     from gps_gaussian_tpu_torch.data.thuman import (DatasetConfig,
                                                     StereoHumanDataset)
     from gps_gaussian_tpu_torch.infer.freeview import load_renderer
     from gps_gaussian_tpu_torch.train.config import load_config
+    from gps_gaussian_tpu_torch.train.sharding import (init_distributed,
+                                                       rank)
+
+    group, device = init_distributed(args.device)
 
     cfg = load_config(args.config)
     ds_cfg = DatasetConfig(
@@ -84,5 +108,6 @@ def load_test_renderer(args):
         source_ids=tuple(args.src_view), use_hr_img=cfg.dataset.use_hr_img,
         use_processed_data=False)
     dataset = StereoHumanDataset(ds_cfg, "test")
-    return load_renderer(cfg, args.ckpt_path, dataset,
-                         device=args.device), dataset
+    renderer = load_renderer(cfg, args.ckpt_path, dataset, device=device,
+                             group=group if args.shard_render else None)
+    return renderer, dataset, rank(group) == 0

@@ -3,6 +3,10 @@
     python -m gps_gaussian_tpu_torch.cli.train_stage1 \
         --config configs/stage1.yaml --data_root /path/to/data \
         [--exp_dir experiments/run1] [--device cpu]
+
+Data-parallel over N cards: `torchrun --nproc_per_node N -m
+gps_gaussian_tpu_torch.cli.train_stage1 ...` (the batch size must divide
+by N).
 """
 
 from gps_gaussian_tpu_torch.cli.common import train_main

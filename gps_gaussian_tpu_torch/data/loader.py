@@ -5,7 +5,10 @@ Counterpart of gps_gaussian_tpu/data/loader.py `collate` :26, `BatchLoader`
 build and stack batches while the device computes. Training batches sample
 without replacement: a shuffled epoch permutation of the scan indices is
 drawn down and reshuffled when exhausted; per-host sharding slices the scan
-list by process index.
+list by process index. A data-parallel rank passes `rows`, its slice of
+each global batch, and builds only those samples: the batch sequence is
+the one a single process draws, and the rank's rows are equal to that
+batch's rows.
 
 One divergence from the JAX loader, which hands out batches in whichever
 order its workers finish them (so a fixed seed does not fix the data
@@ -54,10 +57,31 @@ def collate(samples: Sequence[dict]) -> StereoSample:
                         novel=novel)
 
 
-def _build(dataset, novel_ids, idxs, seed) -> StereoSample:
+def _check_rows(rows: Optional[slice], batch_size: int):
+    """(start, stop) of a contiguous, non-empty slice of a batch."""
+    if rows is None:
+        return 0, batch_size
+    lo, hi, step = rows.indices(batch_size)
+    if step != 1 or hi <= lo:
+        raise ValueError(f"rows {rows} is not a contiguous, non-empty slice "
+                         f"of a batch of {batch_size}")
+    return lo, hi
+
+
+def _build(dataset, novel_ids, idxs, seed, rows: slice) -> StereoSample:
+    """Rows `rows` of the batch of scan indices `idxs` whose samples draw,
+    one after another, from default_rng(seed). A sample outside `rows` is
+    not built, but its draw is replayed: a dataset's get_sample draws
+    exactly one rng.choice(list(novel_ids)) when novel_ids is given
+    (StereoHumanDataset and the datasets of testing.py)."""
     rng = np.random.default_rng(seed)
-    return collate([dataset.get_sample(int(i), novel_ids, rng)
-                    for i in idxs])
+    samples = []
+    for j, i in enumerate(idxs):
+        if rows.start <= j < rows.stop:
+            samples.append(dataset.get_sample(int(i), novel_ids, rng))
+        elif novel_ids is not None:
+            rng.choice(list(novel_ids))
+    return collate(samples)
 
 
 def _proc_worker(setup_q, task_q, out_q):
@@ -67,14 +91,14 @@ def _proc_worker(setup_q, task_q, out_q):
     imported everything, one worker after another. The batch's tensors
     reach the consumer through shared memory (torch's multiprocessing
     pickler), not through the pipe. CPU only: it never touches a GPU."""
-    dataset, novel_ids = setup_q.get()
+    dataset, novel_ids, rows = setup_q.get()
     while True:
         task = task_q.get()
         if task is None:
             return
         seq, idxs, seed = task
         try:
-            out_q.put((seq, _build(dataset, novel_ids, idxs, seed)))
+            out_q.put((seq, _build(dataset, novel_ids, idxs, seed, rows)))
         except Exception as e:  # surfaces in the consumer, not as a hang
             out_q.put((seq, e))
 
@@ -85,15 +109,19 @@ class BatchLoader:
     num_procs > 0 spawns that many worker processes (never forks: the
     caller has initialised CUDA by then); num_procs = 0 uses `num_threads`
     Python threads. At most prefetch + workers batches are drawn and not
-    yet delivered; those that finish early wait for their turn."""
+    yet delivered; those that finish early wait for their turn. `rows`
+    (default: all) is the slice of each batch of `batch_size` that this
+    loader builds and delivers."""
 
     def __init__(self, dataset, batch_size: int,
                  novel_ids: Optional[Sequence[int]], seed: int = 1314,
                  prefetch: int = 2, num_threads: int = 2,
                  num_procs: int = 0,
-                 process_index: int = 0, process_count: int = 1):
+                 process_index: int = 0, process_count: int = 1,
+                 rows: Optional[slice] = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = slice(*_check_rows(rows, batch_size))
         self.novel_ids = novel_ids
         self.rng = np.random.default_rng(seed + process_index)
         self._rng_lock = threading.Lock()
@@ -120,7 +148,7 @@ class BatchLoader:
                 for _ in range(num_procs)]
             for p in self.procs:
                 p.start()
-                self._setup_q.put((dataset, novel_ids))
+                self._setup_q.put((dataset, novel_ids, self.rows))
             self.threads = [threading.Thread(target=self._feeder,
                                              daemon=True)]
         else:
@@ -155,7 +183,8 @@ class BatchLoader:
         while self._acquire():
             seq, idxs, seed = self._next_task()
             try:
-                item = _build(self.dataset, self.novel_ids, idxs, seed)
+                item = _build(self.dataset, self.novel_ids, idxs, seed,
+                              self.rows)
             except Exception as e:  # surfaces in the consumer
                 item = e
             self.q.put((seq, item))
@@ -203,8 +232,8 @@ class BatchLoader:
 def eval_batches(dataset, batch_size: int,
                  novel_ids: Optional[Sequence[int]], seed: int = 1234,
                  process_index: int = 0, process_count: int = 1,
-                 max_batches: Optional[int] = None
-                 ) -> Iterator[tuple]:
+                 max_batches: Optional[int] = None,
+                 rows: Optional[slice] = None) -> Iterator[tuple]:
     """Deterministic full sweep of the val set in fixed-size batches.
 
     Every index is visited once, in order, with a per-sample generator
@@ -213,7 +242,9 @@ def eval_batches(dataset, batch_size: int,
     (StereoSample, weight) with weight a (batch_size,) f32 tensor, 1 for
     first-visit samples and 0 for the wrapped duplicates. The number of
     batches derives from the global dataset length, so every process runs
-    the same number."""
+    the same number. With `rows`, only that slice of each batch (and of
+    its weight) is built and yielded."""
+    lo, hi = _check_rows(rows, batch_size)
     idxs = list(range(process_index, len(dataset), process_count)) or [0]
     shard_len = max(-(-len(dataset) // process_count), 1)
     n_batches = -(-shard_len // batch_size)
@@ -221,7 +252,7 @@ def eval_batches(dataset, batch_size: int,
         n_batches = min(n_batches, max_batches)
     n_live = len(range(process_index, len(dataset), process_count))
     for b in range(n_batches):
-        pos = [b * batch_size + j for j in range(batch_size)]
+        pos = [b * batch_size + j for j in range(lo, hi)]
         chunk = [idxs[p % len(idxs)] for p in pos]
         weight = torch.tensor([1.0 if p < n_live else 0.0 for p in pos],
                               dtype=torch.float32)

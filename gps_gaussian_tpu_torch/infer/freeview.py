@@ -4,8 +4,10 @@ then any number of novel views are splatted from its Gaussians.
 Counterpart of gps_gaussian_tpu/infer/freeview.py `compact_valid` :30,
 `FreeviewRenderer` (`gaussians`, `render`, `flush_drop_report`,
 `novel_camera_at`, the dataset-driven sweeps `infer_static` :224 and
-`infer_sequence` :253) and `load_renderer` :277. One device: the
-tile-row-sharded render is not ported yet.
+`infer_sequence` :253) and `load_renderer` :277. Given a torch.distributed
+group of several ranks, every rank runs the stereo forward, takes rank 0's
+compacted Gaussians, and renders its band of tile rows
+(kernels/rasterizer/sharded.py); every rank returns the whole image.
 """
 
 from __future__ import annotations
@@ -18,8 +20,11 @@ import torch
 
 from gps_gaussian_tpu_torch.data.loader import collate
 from gps_gaussian_tpu_torch.geometry import cameras
-from gps_gaussian_tpu_torch.kernels.rasterizer import (
-    compact_gaussian_inputs, rasterize)
+from gps_gaussian_tpu_torch.kernels.rasterizer import (compact_super_rows,
+                                                       rasterize)
+from gps_gaussian_tpu_torch.kernels.rasterizer.sharded import \
+    rasterize_tile_sharded
+from gps_gaussian_tpu_torch.train import sharding
 from gps_gaussian_tpu_torch.train import state as state_lib
 from gps_gaussian_tpu_torch.train.config import Config
 from gps_gaussian_tpu_torch.train.trainer import make_model, make_raster_config
@@ -32,18 +37,30 @@ log = logging.getLogger("gps_tpu_torch.infer")
 
 
 def compact_valid(gauss: FlatGaussians, cap: int):
-    """Pack batch-1 valid Gaussians into the first `cap` rows.
+    """Pack batch-1 valid (> 0) Gaussians into `cap` rows, once per frame.
 
-    Row-exact, through live_first_order: the first `cap` valid rows are kept
-    in order, and the valid rows past the cap are counted. The JAX version
-    moves 8-row super-rows (a TPU DMA layout). When the cap does not bind,
-    both render the same image: dead rows project to radius 0 and make no
-    pairs, and the live rows keep their order. When it binds, JAX keeps
-    only the valid rows of the first cap/8 live super-rows, so the kept
-    rows and the drop count differ from this version.
+    Groups of 8 rows that hold a valid row are kept whole, in order, and
+    the valid rows of the groups past the cap are counted
+    (`compact_super_rows`, the JAX version's layout). A cap of at least N
+    pads in place; otherwise `cap` and N must be multiples of 8.
     Returns (FlatGaussians with `cap` rows, num_dropped)."""
-    (xyz, rot, scale, opacity, rgb, valid), n_dropped = \
-        compact_gaussian_inputs(gauss, 0, cap)
+    n = gauss.valid.shape[1]
+    valid_f = (gauss.valid[0] > 0.0).float()
+    fields = (gauss.xyz[0], gauss.rot[0], gauss.scale[0],
+              gauss.opacity[0].reshape(n, 1), gauss.rgb[0])
+    if cap >= n:
+        def pad(x):
+            return torch.nn.functional.pad(x, (0, 0, 0, cap - n))
+
+        xyz, rot, scale, opacity, rgb = map(pad, fields)
+        valid = torch.nn.functional.pad(valid_f, (0, cap - n))
+        n_dropped = torch.zeros((), dtype=torch.int64, device=valid.device)
+    else:
+        if cap % 8 or n % 8:
+            raise ValueError(f"compact_valid: cap={cap} and N={n} must be "
+                             f"multiples of 8 (rows are kept in groups of 8)")
+        (xyz, rot, scale, opacity, rgb, valid), n_dropped = \
+            compact_super_rows(fields, valid_f, cap)
     return FlatGaussians(xyz=xyz[None], rgb=rgb[None], rot=rot[None],
                          scale=scale[None], opacity=opacity[None],
                          valid=valid[None]), n_dropped
@@ -56,11 +73,16 @@ class FreeviewRenderer:
     (utils/weights.py converts flax parameters). `dataset` (a
     StereoHumanDataset, or anything with its `get_test_sample` and
     `__len__`) feeds the sweeps. Runs on `device`: CUDA unless the caller
-    asks for the CPU."""
+    asks for the CPU. With a `group` of several ranks, every rank of the
+    group builds a renderer and makes the same calls: the Gaussians are
+    rank 0's, each rank renders a band of every view, and each gets the
+    whole image (its counters summed over the group)."""
 
     def __init__(self, cfg: Config, state_dict: Mapping[str, torch.Tensor],
-                 dataset=None, device="cuda"):
+                 dataset=None, device="cuda",
+                 group: sharding.Group = None):
         self.device = resolve_device(device)
+        self.group = group if sharding.world_size(group) > 1 else None
         self.cfg = cfg
         self.dataset = dataset
         self.model = make_model(cfg, with_gs=True)
@@ -98,19 +120,33 @@ class FreeviewRenderer:
         gauss = out.lmain_gs.flatten().concat(out.rmain_gs.flatten())
         if self._fg_cap is not None:
             gauss, n_dropped = compact_valid(gauss, self._fg_cap)
+            sharding.broadcast_from_rank0([n_dropped], self.group)
             self._fg_dropped += n_dropped
             if self._due(self._frames_forwarded) and int(n_dropped):
                 log.warning("foreground compaction dropped %d valid "
                             "gaussians this frame (raise raster.fg_cap)",
                             int(n_dropped))
+        if self.group is not None:
+            # every band must come from one Gaussian set: rank 0's
+            gauss = dataclasses.replace(gauss, **{
+                f.name: getattr(gauss, f.name).contiguous()
+                for f in dataclasses.fields(gauss)})
+            sharding.broadcast_from_rank0(
+                [getattr(gauss, f.name) for f in dataclasses.fields(gauss)],
+                self.group)
         self._frames_forwarded += 1
         return gauss
 
     @torch.inference_mode()
     def render(self, gauss: FlatGaussians, camera: NovelCamera):
         """Returns (images (1, H, W, 3), RasterizeAux with drop counters)."""
-        img, aux = rasterize(gauss, camera, self.bg, self.rcfg,
-                             device=self.device)
+        if self.group is not None:
+            img, aux = rasterize_tile_sharded(gauss, camera, self.bg,
+                                              self.rcfg, self.group,
+                                              device=self.device)
+        else:
+            img, aux = rasterize(gauss, camera, self.bg, self.rcfg,
+                                 device=self.device)
         drops = (aux.num_dropped.sum() + aux.num_fg_dropped.sum()
                  + aux.num_pair_dropped.sum())
         self._pair_dropped += drops
@@ -183,13 +219,16 @@ class FreeviewRenderer:
 
 
 def load_renderer(cfg: Config, ckpt_dir: str, dataset=None,
-                  device="cuda") -> FreeviewRenderer:
+                  device="cuda",
+                  group: sharding.Group = None) -> FreeviewRenderer:
     """A renderer on the trained weights of `ckpt_dir` (a run directory of
-    `ckpt_<step>.pt` files, the latest taken, or one file). Raises when no
-    tensor of the model is found there."""
+    `ckpt_<step>.pt` files, the latest taken, or one file), rendering over
+    `group` when it has several ranks. Raises when no tensor of the model
+    is found there."""
     device = resolve_device(device)
     model = make_model(cfg, with_gs=True)
     n = state_lib.restore_params_partial(ckpt_dir, model)
     if n == 0:
         raise FileNotFoundError(f"no restorable params in {ckpt_dir}")
-    return FreeviewRenderer(cfg, model.state_dict(), dataset, device=device)
+    return FreeviewRenderer(cfg, model.state_dict(), dataset, device=device,
+                            group=group)

@@ -1,9 +1,10 @@
-"""Live-first compaction ordering.
+"""Live-first compaction ordering, and the row gather it feeds.
 
 Counterpart of gps_gaussian_tpu/kernels/rasterizer/compaction.py
 `live_first_order` :25: a stable keep-rows-first order truncated to a
 static cap, so kept rows preserve their relative order and every kept row
-lost to the cap is counted.
+lost to the cap is counted; and of `take_rows_unique`
+(pallas_kernel.py:72-99).
 """
 
 from __future__ import annotations
@@ -37,3 +38,31 @@ def live_first_order(keep: torch.Tensor, cap: int) -> Tuple[
     if cap > n:
         live = torch.nn.functional.pad(live, (0, cap - n))
     return None, live, torch.zeros((), dtype=torch.int64, device=keep.device)
+
+
+class _TakeRowsUnique(torch.autograd.Function):
+    """x[idx] for UNIQUE row indices, with a copy as its backward.
+
+    Counterpart of `take_rows_unique` (pallas_kernel.py:72-99). Autograd's
+    own backward of x[idx] is index_put with accumulation, which on CUDA
+    adds with float atomics; the indices are unique, so a plain row copy
+    into zeros gives the same gradient with the same bits every run."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = x.shape[0]
+        return x[idx]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        out = g.new_zeros((ctx.rows,) + tuple(g.shape[1:]))
+        out.index_copy_(0, idx, g)
+        return out, None
+
+
+def take_rows_unique(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather x[idx]; `idx` (int64) must hold no index twice."""
+    return _TakeRowsUnique.apply(x, idx)

@@ -169,8 +169,10 @@ def composite_fwd(props: torch.Tensor, start: torch.Tensor,
 def launch_fwd(lib: ctypes.CDLL, props, start, count, tiles_y: int,
                tiles_x: int) -> torch.Tensor:
     """Launch `lib`'s composite_fwd on checked CUDA tensors, on the current
-    stream. `composite_fwd` calls it with the shipped kernel's library; a
-    measurement may hand it another build of the same C interface."""
+    stream of their device, with that device made current (the C code
+    launches on the runtime's current device). `composite_fwd` calls it
+    with the shipped kernel's library; a measurement may hand it another
+    build of the same C interface."""
     num_tiles = start.shape[0]
     out = torch.empty((num_tiles, PIX, 4), dtype=torch.float32,
                       device=props.device)
@@ -179,10 +181,11 @@ def launch_fwd(lib: ctypes.CDLL, props, start, count, tiles_y: int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(props.device).cuda_stream
-    err = fn(props.data_ptr(), props.shape[1], start.data_ptr(),
-             count.data_ptr(), num_tiles, tiles_x, tiles_y * tiles_x,
-             out.data_ptr(), stream)
+    with torch.cuda.device(props.device):
+        stream = torch.cuda.current_stream(props.device).cuda_stream
+        err = fn(props.data_ptr(), props.shape[1], start.data_ptr(),
+                 count.data_ptr(), num_tiles, tiles_x, tiles_y * tiles_x,
+                 out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -313,7 +316,8 @@ def composite_bwd(props: torch.Tensor, start: torch.Tensor,
 def launch_bwd(lib: ctypes.CDLL, props, start, count, out, g_out,
                tiles_y: int, tiles_x: int) -> torch.Tensor:
     """Launch `lib`'s composite_bwd on checked CUDA tensors, on the current
-    stream (see `launch_fwd`)."""
+    stream of their device, with that device made current (see
+    `launch_fwd`)."""
     # zeros, not empty: the kernel writes only the pairs its walk reaches
     gprops = torch.zeros_like(props)
     fn = lib.composite_bwd
@@ -322,10 +326,12 @@ def launch_bwd(lib: ctypes.CDLL, props, start, count, out, g_out,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(props.device).cuda_stream
-    err = fn(props.data_ptr(), props.shape[1], start.data_ptr(),
-             count.data_ptr(), start.shape[0], tiles_x, tiles_y * tiles_x,
-             out.data_ptr(), g_out.data_ptr(), gprops.data_ptr(), stream)
+    with torch.cuda.device(props.device):
+        stream = torch.cuda.current_stream(props.device).cuda_stream
+        err = fn(props.data_ptr(), props.shape[1], start.data_ptr(),
+                 count.data_ptr(), start.shape[0], tiles_x,
+                 tiles_y * tiles_x, out.data_ptr(), g_out.data_ptr(),
+                 gprops.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error "
                            f"{err}")

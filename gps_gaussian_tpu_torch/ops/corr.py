@@ -41,8 +41,12 @@ def sample_lastdim(vol: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Linear sampling of (B, H, W, S) along S at x (B, H, W, T).
 
     Align-corners semantics: integer x hits bin centres; taps outside
-    [0, S-1] contribute zero."""
+    [0, S-1] contribute zero, so an empty level (S = 0, a pooled level of a
+    narrow image) samples zeros, as JAX's dense sum over S does."""
     s = vol.shape[-1]
+    if s == 0:
+        return torch.zeros_like(x, dtype=torch.promote_types(vol.dtype,
+                                                             x.dtype))
     x0 = torch.floor(x)
     frac = x - x0
     x0 = x0.long()

@@ -15,16 +15,31 @@ files and no image codec: `SynthMemoryDataset` renders the scenes of
 `data/synth.py generate_scan` in memory and runs the real rectification,
 flow and sampling code on them; `SilhouetteDataset` serves silhouette
 stereo pairs at any width, for full-width training runs.
+
+`spawn_ranks` runs one of the rank workers below (`rank_render`,
+`rank_train_steps`, `rank_eval`, `rank_trainer`, or several in turn with
+`rank_sequence`) in spawned processes joined by a gloo group, for the tests
+and the GPU smoke run. The children import this module and the port only.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import datetime
+import multiprocessing as mp
+import os
+import pickle
+import queue
 import time
+import traceback
+import uuid
 from concurrent.futures import Executor
+from pathlib import Path
 from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gps_gaussian_tpu_torch.data import synth
 from gps_gaussian_tpu_torch.data.thuman import (DatasetConfig,
@@ -401,3 +416,236 @@ class DelayedDataset:
     def get_sample(self, index: int, novel_ids, rng=None) -> dict:
         time.sleep(self.delays[index % len(self.delays)])
         return self.dataset.get_sample(index, novel_ids, rng)
+
+
+# ------------------------------------------------------------ rank workers
+
+
+def take_rows(obj, rows: slice):
+    """A dataclass of batched tensors (StereoSample, FlatGaussians, ...)
+    with every tensor cut to `rows` of its leading axis; other fields are
+    kept."""
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            changes[f.name] = v[rows]
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = take_rows(v, rows)
+    return dataclasses.replace(obj, **changes)
+
+
+def _launches() -> dict:
+    from gps_gaussian_tpu_torch.kernels import build
+
+    return dict(build.LAUNCHES)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def rank_render(rank: int, world: int, group, p: dict) -> dict:
+    """`rasterize_tile_sharded` of p["gauss"] into p["camera"] over `group`
+    (bg p["bg"], config p["cfg"], on p["device"]). Returns the image,
+    transmittance and counters on the CPU, and the kernel launches."""
+    from gps_gaussian_tpu_torch.kernels import build
+    from gps_gaussian_tpu_torch.kernels.rasterizer.sharded import \
+        rasterize_tile_sharded
+
+    build.reset_launch_counts()
+    img, aux = rasterize_tile_sharded(p["gauss"], p["camera"], p["bg"],
+                                      p["cfg"], group, device=p["device"])
+    _sync(p["device"])
+    return {"img": img.cpu(), "trans": aux.transmittance.cpu(),
+            "counters": [int(aux.num_dropped[0]), int(aux.num_fg_dropped[0]),
+                         int(aux.num_pair_dropped[0])],
+            "launches": _launches()}
+
+
+def _batch(spec, device):
+    """The global batch that spec = (function name in this module, kwargs)
+    builds, on `device`."""
+    name, kwargs = spec
+    return globals()[name](**kwargs).to(device)
+
+
+def _model_and_state(p: dict):
+    """(model, TrainState) of p["cfg"] on p["device"], the model's weights
+    loaded from the file p["init"] (a state_dict)."""
+    from gps_gaussian_tpu_torch.train import state as state_lib
+    from gps_gaussian_tpu_torch.train.trainer import make_model
+
+    cfg = p["cfg"]
+    model = make_model(cfg, with_gs=cfg.stage == "stage2")
+    model.load_state_dict(torch.load(p["init"], map_location="cpu",
+                                     weights_only=True))
+    return model, state_lib.create_state(cfg, model, p["device"])
+
+
+def rank_train_steps(rank: int, world: int, group, p: dict) -> dict:
+    """p["steps"] data-parallel training steps (`make_sharded_train_step`)
+    from the weights in the file p["init"], each rank on its rows of the
+    global batch p["batch"] (see `_batch`). Rank 0 writes the parameters
+    after the steps to p["out"]. Returns each step's metrics and host-clock
+    ms, the peak memory on a CUDA device and the kernel launches."""
+    from gps_gaussian_tpu_torch.kernels import build
+    from gps_gaussian_tpu_torch.train import sharding
+    from gps_gaussian_tpu_torch.train.trainer import (make_raster_config,
+                                                      make_sharded_train_step)
+
+    cfg, dev = p["cfg"], torch.device(p["device"])
+    model, state = _model_and_state(p)
+    step = make_sharded_train_step(model, cfg, cfg.stage,
+                                   make_raster_config(cfg), state, group, dev)
+    batch = take_rows(_batch(p["batch"], dev),
+                      sharding.rank_rows(cfg.batch_size, group))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launch_counts()
+    metrics, step_ms = [], []
+    for _ in range(p["steps"]):
+        _sync(dev)
+        t0 = time.perf_counter()
+        m = step(batch)
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    if rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in
+                    model.state_dict().items()}, p["out"])
+    return {"metrics": metrics, "step_ms": step_ms,
+            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if dev.type == "cuda" else None),
+            "launches": _launches()}
+
+
+def rank_eval(rank: int, world: int, group, p: dict) -> dict:
+    """`make_sharded_eval_step` on this rank's rows of the batch p["batch"]
+    and of the weights p["weight"]: the (numerator, denominator) sums."""
+    from gps_gaussian_tpu_torch.train import sharding
+    from gps_gaussian_tpu_torch.train.trainer import (make_raster_config,
+                                                      make_sharded_eval_step)
+
+    cfg, dev = p["cfg"], torch.device(p["device"])
+    model, _ = _model_and_state(p)
+    eval_step = make_sharded_eval_step(model, cfg, cfg.stage,
+                                       make_raster_config(cfg), group, dev)
+    rows = sharding.rank_rows(cfg.batch_size, group)
+    metrics, _ = eval_step(take_rows(_batch(p["batch"], dev), rows),
+                           p["weight"][rows])
+    return {k: (float(n), float(d)) for k, (n, d) in metrics.items()}
+
+
+def rank_trainer(rank: int, world: int, group, p: dict) -> dict:
+    """A `Trainer` over `group` (config p["cfg"], datasets p["train_ds"]
+    and p["val_ds"], run directory p["exp_dir"]) trained to step
+    p["steps"], then its val sweep; rank 0 writes the parameters to
+    p["out"]. Returns the logged history, the sweep's metrics, the run's
+    checkpoint files, the peak memory of the training on a CUDA device and
+    its kernel launches."""
+    from gps_gaussian_tpu_torch.kernels import build
+    from gps_gaussian_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device(p["device"])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    trainer = Trainer(p["cfg"], exp_dir=p["exp_dir"], dataset=p["train_ds"],
+                      val_dataset=p["val_ds"], device=p["device"],
+                      group=group)
+    build.reset_launch_counts()
+    try:
+        trainer.train(num_steps=p["steps"])
+        launches = _launches()
+        peak_gib = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                    if dev.type == "cuda" else None)
+        val = trainer.run_eval(p["steps"])
+    finally:
+        trainer.close()
+    if rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in
+                    trainer.model.state_dict().items()}, p["out"])
+    return {"history": trainer.history, "val": val,
+            "ckpts": sorted(os.listdir(Path(p["exp_dir"]) / "ckpt")),
+            "peak_gib": peak_gib, "launches": launches}
+
+
+def rank_sequence(rank: int, world: int, group, p: dict) -> list:
+    """Several workers in turn on one group: p["steps"] is a list of
+    (worker name, its payload); returns their results in order."""
+    return [globals()[name](rank, world, group, payload)
+            for name, payload in p["steps"]]
+
+
+def _rank_entry(target: str, rank: int, world: int, init_method: str,
+                payload: dict, out_q) -> None:
+    """A spawned rank: join the gloo group, run `target`, report
+    (rank, ok, pickled result or traceback) on `out_q`. The result is
+    pickled by value: tensors put on a queue as they are would be shared
+    through file descriptors that close when this process exits."""
+    try:
+        dev = torch.device(payload.get("device", "cpu"))
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        else:  # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            out = globals()[target](rank, world, dist.group.WORLD, payload)
+        finally:
+            dist.destroy_process_group()
+        out_q.put((rank, True, pickle.dumps(out)))
+    except BaseException:  # reported to the parent, which raises
+        out_q.put((rank, False, traceback.format_exc()))
+
+
+def spawn_ranks(target: str, world: int, payload: dict, workdir,
+                timeout: float = 120.0) -> list:
+    """Run `target(rank, world, group, payload)` (a rank worker of this
+    module) in `world` spawned processes joined by a gloo group that meets
+    through a file in `workdir` (no network port). Every rank gets the same
+    payload; a CUDA payload["device"] puts every rank on that one card.
+    Returns the ranks' results in rank order. Raises when a rank fails or
+    `timeout` seconds pass, and kills the ranks still running."""
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    init = Path(workdir) / f"pg-{uuid.uuid4().hex}"
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(target, r, world, f"file://{init}", payload,
+                               out_q))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    results: dict = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(results) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"{target}: {world - len(results)} of "
+                                   f"{world} ranks did not finish in "
+                                   f"{timeout:.0f} s")
+            try:
+                r, ok, out = out_q.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [i for i, proc in enumerate(procs)
+                        if i not in results and proc.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(f"{target}: rank {dead[0]} exited "
+                                       f"with code {procs[dead[0]].exitcode}")
+                continue
+            if not ok:
+                raise RuntimeError(f"{target}: rank {r} failed:\n{out}")
+            results[r] = pickle.loads(out)
+    finally:
+        for proc in procs:
+            proc.join(timeout=5.0)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        if init.exists():
+            init.unlink()
+    return [results[r] for r in range(world)]

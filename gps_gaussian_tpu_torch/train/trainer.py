@@ -4,11 +4,21 @@ flow_weight * flow + l1_weight * L1 + ssim_weight * (1 - SSIM).
 
 Counterpart of gps_gaussian_tpu/train/trainer.py: `make_model` :34,
 `make_raster_config` :48, `render_novel` :57, `drop_metrics` :67,
-`_stacked_flow_gt` :78, `make_train_step` :84, `make_eval_step` :192 with
-its stage-1 point-splat preview :196, and the `Trainer` :254 (loaders,
-logging, checkpoint cadence, the eval sweep). Convolutions compute in bf16
-under raft.mixed_precision; parameters, losses and the optimizer stay f32.
-One device: the multi-device step is not ported yet.
+`_stacked_flow_gt` :78, `make_train_step` :84 with the in-step gradient
+mean, `make_sharded_train_step` :146, `make_sharded_eval_step` :167,
+`make_eval_step` :192 with its stage-1 point-splat preview :196, and the
+`Trainer` :254 (loaders, logging, checkpoint cadence, the eval sweep).
+Convolutions compute in bf16 under raft.mixed_precision; parameters, losses
+and the optimizer stay f32.
+
+Several devices: one process per rank over a torch.distributed group
+(train/sharding.py), each on its rows of the global batch. After the
+backward the gradients are averaged over the group with one all-reduce of
+their flat concatenation (the JAX step's pmean); clipping and AdamW then
+run on the mean, so every rank takes the same update. The model is not
+wrapped in DistributedDataParallel: checkpoints hold the bare module's
+keys, and every parameter of both stages gets a gradient, so no unused-
+parameter search is needed.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ from pathlib import Path
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from gps_gaussian_tpu_torch.data.loader import BatchLoader, eval_batches
@@ -32,7 +43,7 @@ from gps_gaussian_tpu_torch.kernels.rasterizer import (RasterizeConfig,
                                                        rasterize)
 from gps_gaussian_tpu_torch.models.gps_gaussian import GPSGaussianModel
 from gps_gaussian_tpu_torch.models.layers import init_weights
-from gps_gaussian_tpu_torch.train import losses
+from gps_gaussian_tpu_torch.train import losses, sharding
 from gps_gaussian_tpu_torch.train import state as state_lib
 from gps_gaussian_tpu_torch.train.config import Config
 from gps_gaussian_tpu_torch.train.state import TrainState
@@ -68,6 +79,32 @@ def make_raster_config(cfg: Config) -> RasterizeConfig:
         pair_budget=cfg.raster.pair_budget)
 
 
+def average_gradients(params, group: sharding.Group) -> None:
+    """Replace every gradient by its mean over `group`: one all-reduce of
+    the gradients' flat concatenation. Every rank must hold gradients for
+    the same parameters (the step's graph is the same on every rank)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if group is None or not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= sharding.world_size(group)
+    for g, mean in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(mean.view_as(g))
+
+
+def reduce_metrics(metrics: dict, group: sharding.Group) -> dict:
+    """Metrics over `group`: drop counters (batch sums) summed, everything
+    else (batch means) averaged, with one all-reduce (JAX :136-139)."""
+    if group is None:
+        return metrics
+    keys = sorted(metrics)
+    vals = torch.stack([metrics[k].detach().float() for k in keys])
+    dist.all_reduce(vals, group=group)
+    world = sharding.world_size(group)
+    return {k: v if "drop" in k else v / world for k, v in zip(keys, vals)}
+
+
 def render_novel(out, novel: NovelView, bg_color, rcfg: RasterizeConfig,
                  device="cuda"):
     """Splat both views' pixel-aligned Gaussians into the novel camera.
@@ -101,12 +138,15 @@ def _check_placement(model, dev) -> None:
 
 def make_train_step(model: GPSGaussianModel, cfg: Config, stage: str,
                     rcfg: RasterizeConfig, state: TrainState,
-                    device="cuda"):
+                    device="cuda", group: sharding.Group = None):
     """One optimizer step on an in-memory batch.
 
     Returns `train_step(batch, mark=None) -> metrics`: forward, loss,
     backward, clipping and the update of `state` (in place). Model and
-    batch live on `device`, CUDA unless the caller asks for the CPU.
+    batch live on `device`, CUDA unless the caller asks for the CPU. With a
+    `group`, `batch` is this rank's rows: the gradients are averaged over
+    the group before clipping and the metrics reduced (`reduce_metrics`),
+    so every rank returns the same metrics and takes the same update.
     `mark(name)`, when given, is called after the "forward", "backward" and
     "optimizer" parts, so that a caller can time them. Metrics are detached
     scalars on the device. `train_step.loss_fn(batch) -> (loss, metrics)` is
@@ -154,14 +194,27 @@ def make_train_step(model: GPSGaussianModel, cfg: Config, stage: str,
         loss, metrics = loss_fn(batch)
         mark("forward")
         loss.backward()
+        average_gradients(model.parameters(), group)
         mark("backward")
         grad_norm = state.apply_gradients()
         mark("optimizer")
-        metrics = dict(metrics, loss=loss, grad_norm=grad_norm)
+        metrics = reduce_metrics(dict(metrics, loss=loss), group)
+        metrics = dict(metrics, grad_norm=grad_norm)
         return {k: v.detach() for k, v in metrics.items()}
 
     train_step.loss_fn = loss_fn
     return train_step
+
+
+def make_sharded_train_step(model: GPSGaussianModel, cfg: Config,
+                            stage: str, rcfg: RasterizeConfig,
+                            state: TrainState, group: sharding.Group,
+                            device="cuda"):
+    """The data-parallel step (JAX :146): `make_train_step` over `group`,
+    each rank on its rows of the batch. For equal shares it takes the
+    update of the one-process step on the whole batch, up to the means of
+    valid-masked metrics, which are per-rank means averaged."""
+    return make_train_step(model, cfg, stage, rcfg, state, device, group)
 
 
 def stage1_preview(batch: StereoSample, flow_up: torch.Tensor):
@@ -226,6 +279,28 @@ def make_eval_step(model: GPSGaussianModel, cfg: Config, stage: str,
     return eval_step
 
 
+def make_sharded_eval_step(model: GPSGaussianModel, cfg: Config,
+                           stage: str, rcfg: RasterizeConfig,
+                           group: sharding.Group, device="cuda"):
+    """`make_eval_step` on this rank's rows, with every (numerator,
+    denominator) pair summed over `group` (JAX :167-189), so each rank sees
+    the global weighted ratio. The image is this rank's rows."""
+    base = make_eval_step(model, cfg, stage, rcfg, device)
+    if group is None:
+        return base
+
+    def eval_step(batch: StereoSample, weight: torch.Tensor):
+        metrics, img_pred = base(batch, weight)
+        keys = sorted(metrics)
+        vals = torch.stack([torch.stack([metrics[k][0].float(),
+                                         metrics[k][1].float()])
+                            for k in keys])
+        dist.all_reduce(vals, group=group)
+        return {k: (v[0], v[1]) for k, v in zip(keys, vals)}, img_pred
+
+    return eval_step
+
+
 class Trainer:
     """Runs an experiment: loaders, steps, logging, checkpoints, the eval
     sweep. Runs on `device`, CUDA unless the caller asks for the CPU.
@@ -235,17 +310,33 @@ class Trainer:
     batch); stage 2 then warm-starts from `cfg.stage1_ckpt` (a run
     directory of `ckpt_<step>.pt` files or one file; `n_restored` counts
     the tensors copied), and `cfg.restore_ckpt` resumes a run with its
-    optimizer, scheduler and step."""
+    optimizer, scheduler and step.
+
+    With a torch.distributed `group` of several ranks (every rank builds
+    its Trainer with the same config and datasets), each rank draws the
+    batch sequence of a one-process run and trains on its rows of each
+    batch, with the gradients averaged over the group; the global batch is
+    cfg.batch_size, which the number of ranks must divide. Rank 0 alone
+    writes checkpoints, logs and previews, and the group waits for each
+    write. Checkpoints hold the bare model's keys, so a run resumes at any
+    number of ranks."""
 
     def __init__(self, cfg: Config, exp_dir: Optional[str] = None,
-                 dataset=None, val_dataset=None, device="cuda"):
+                 dataset=None, val_dataset=None, device="cuda",
+                 group: sharding.Group = None):
         self.cfg = cfg
         self.stage = cfg.stage
         self.device = resolve_device(device)
+        self.group = group
+        self.is_main = sharding.rank(group) == 0
+        # raises unless the ranks divide the batch (JAX :292-297)
+        self.rows = sharding.rank_rows(cfg.batch_size, group)
         self.exp_dir = Path(exp_dir or
                             f"{cfg.record.ckpt_path}/{cfg.name}")
-        for sub in ("ckpt", "show", "logs"):
-            (self.exp_dir / sub).mkdir(parents=True, exist_ok=True)
+        if self.is_main:
+            for sub in ("ckpt", "show", "logs"):
+                (self.exp_dir / sub).mkdir(parents=True, exist_ok=True)
+        sharding.barrier(group)
 
         ds_cfg = DatasetConfig(
             data_root=cfg.dataset.data_root,
@@ -275,29 +366,39 @@ class Trainer:
             log.info("resumed at step %d", self.state.step)
         self.rcfg = make_raster_config(cfg)
         self.train_step = make_train_step(self.model, cfg, self.stage,
-                                          self.rcfg, self.state, self.device)
-        self.eval_step = make_eval_step(self.model, cfg, self.stage,
-                                        self.rcfg, self.device)
+                                          self.rcfg, self.state, self.device,
+                                          group)
+        self.eval_step = make_sharded_eval_step(
+            self.model, cfg, self.stage, self.rcfg, group, self.device)
 
         # built after the model is on the device: worker processes are
         # spawned, never forked from a process that holds a CUDA context
         self.train_loader = BatchLoader(
             self.train_ds, cfg.batch_size, tuple(cfg.dataset.train_novel_id),
             seed=cfg.seed if cfg.loader_seed is None else cfg.loader_seed,
-            num_procs=cfg.dataset.num_workers)
+            num_procs=cfg.dataset.num_workers, rows=self.rows)
 
         self.last_preview = None   # run_eval's first image, numpy
         # every loss_freq steps: the running means, and the latest step's
         # own time and wait for its batch (host clock)
         self.history: list = []
         self.writer = None
-        try:
-            from tensorboardX import SummaryWriter
+        if self.is_main:
+            try:
+                from tensorboardX import SummaryWriter
 
-            self.writer = SummaryWriter(str(self.exp_dir / "logs"))
-        except Exception:
-            pass
-        self._snapshot_provenance()
+                self.writer = SummaryWriter(str(self.exp_dir / "logs"))
+            except Exception:
+                pass
+            self._snapshot_provenance()
+
+    def _save(self, ckpt_dir: Path) -> Path:
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        path = ckpt_dir / f"ckpt_{self.state.step}.pt"
+        if self.is_main:
+            path = state_lib.save_checkpoint(ckpt_dir, self.state)
+        sharding.barrier(self.group)
+        return path
 
     def _snapshot_provenance(self):
         """Record the code's git revision and dirty files with the run."""
@@ -328,7 +429,8 @@ class Trainer:
         record.loss_freq steps and at the end; the val sweep runs every
         record.eval_freq steps, and once before any update with
         `eval_first`. trace_steps=(lo, hi) writes a torch.profiler trace of
-        that step window to trace_dir (default <exp>/logs/profile)."""
+        that step window, rank 0's, to trace_dir (default
+        <exp>/logs/profile)."""
         cfg = self.cfg
         total = num_steps or cfg.num_steps
         running: dict = {}
@@ -340,7 +442,8 @@ class Trainer:
             self.run_eval(0)
         prof = None
         for step in range(self.state.step, total):
-            if trace_steps and step == trace_steps[0] and prof is None:
+            if trace_steps and step == trace_steps[0] and prof is None \
+                    and self.is_main:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if self.device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -366,9 +469,10 @@ class Trainer:
                 n = cfg.record.loss_freq
                 msg = " ".join(f"{k}={v / n:.4f}"
                                for k, v in sorted(running.items()))
-                log.info("step %d: %s (%.2f pairs/s, %.1f ms/step, "
-                         "%.1f ms waiting for data)", step + 1, msg,
-                         timer.pairs_per_s, timer.step_ms, wait.step_ms)
+                if self.is_main:
+                    log.info("step %d: %s (%.2f pairs/s, %.1f ms/step, "
+                             "%.1f ms waiting for data)", step + 1, msg,
+                             timer.pairs_per_s, timer.step_ms, wait.step_ms)
                 self._log_scalars({k: v / n for k, v in running.items()},
                                   step + 1)
                 self._log_scalars({"perf/pairs_per_s": timer.pairs_per_s,
@@ -380,18 +484,20 @@ class Trainer:
                     step_ms=timer.last_s * 1e3,
                     data_wait_ms=wait.last_s * 1e3))
                 running = {}
-                saved = state_lib.save_checkpoint(ckpt_dir, self.state)
+                saved = self._save(ckpt_dir)
             if (step + 1) % cfg.record.eval_freq == 0:
                 self.run_eval(step + 1)
         if saved is None or saved.name != f"ckpt_{self.state.step}.pt":
-            state_lib.save_checkpoint(ckpt_dir, self.state)
+            self._save(ckpt_dir)
         return self.state
 
     def run_eval(self, step: int, max_batches: Optional[int] = None) -> dict:
         """Deterministic full sweep of the val set (the reference's full val
-        loop, not random batches), so val metrics compare run to run. The
-        first batch's first image is written to <exp>/show/<step>.jpg when
-        an image writer is importable."""
+        loop, not random batches), so val metrics compare run to run. Each
+        rank evaluates its rows of every batch and the sums are taken over
+        the group, so the result does not depend on the number of ranks.
+        The first batch's first image is written to <exp>/show/<step>.jpg
+        when an image writer is importable."""
         num_agg: dict = {}
         den_agg: dict = {}
         preview = None
@@ -399,7 +505,7 @@ class Trainer:
                 self.val_ds, self.cfg.batch_size,
                 tuple(self.cfg.dataset.val_novel_id),
                 max_batches=max_batches
-                or self.cfg.dataset.eval_max_batches):
+                or self.cfg.dataset.eval_max_batches, rows=self.rows):
             metrics, img_pred = self.eval_step(batch, weight)
             for k, (num, den) in metrics.items():
                 num_agg[k] = num_agg.get(k, 0.0) + float(num)
@@ -407,16 +513,18 @@ class Trainer:
             if preview is None and img_pred is not None:
                 preview = img_pred[0].float().cpu().numpy()
         final = {k: num_agg[k] / max(den_agg[k], 1e-12) for k in num_agg}
-        msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(final.items()))
-        log.info("eval @%d: %s", step, msg)
-        self._log_scalars(final, step)
         self.last_preview = preview
-        if preview is not None:
-            try:
-                write_image(self.exp_dir / "show" / f"{step:08d}.jpg",
-                            preview)
-            except Exception as e:
-                log.warning("eval preview write failed: %s", e)
+        if self.is_main:
+            msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(final.items()))
+            log.info("eval @%d: %s", step, msg)
+            self._log_scalars(final, step)
+            if preview is not None:
+                try:
+                    write_image(self.exp_dir / "show" / f"{step:08d}.jpg",
+                                preview)
+                except Exception as e:
+                    log.warning("eval preview write failed: %s", e)
+        sharding.barrier(self.group)
         return final
 
     def close(self):

@@ -154,10 +154,12 @@ def _scene(rng, n, batch):
     scale = rng.uniform(0.005, 0.06, (batch, n, 3)).astype(np.float32)
     opacity = rng.uniform(0.1, 0.95, (batch, n, 1)).astype(np.float32)
     rgb = rng.uniform(0, 1, (batch, n, 3)).astype(np.float32)
-    # validity in runs of 8 rows: JAX compacts 8-row super-rows, the port
-    # single rows, and on such masks both keep the same rows
-    valid = np.repeat(rng.uniform(size=(batch, n // 8)) > 0.3, 8,
-                      axis=1).astype(np.float32)
+    # validity row by row inside groups of 8 rows, about 30% of the groups
+    # wholly invalid: compaction keeps every group with a valid row, so
+    # fg_cap 280 of the 320 rows does not bind
+    valid = ((rng.uniform(size=(batch, n // 8, 1)) > 0.3)
+             & (rng.uniform(size=(batch, n // 8, 8)) > 0.15)).reshape(
+        batch, n).astype(np.float32)
     cams = []
     for b in range(batch):
         K = np.array([[0.8 * RES, 0, RES / 2 + 2 * b],

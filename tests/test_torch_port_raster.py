@@ -101,11 +101,9 @@ def _scene(rng, n, batch):
     scale = rng.uniform(0.005, 0.06, (batch, n, 3)).astype(np.float32)
     opacity = rng.uniform(0.1, 0.95, (batch, n, 1)).astype(np.float32)
     rgb = rng.uniform(0, 1, (batch, n, 3)).astype(np.float32)
-    # validity in runs of 8 rows, so that the JAX package's 8-row
-    # super-row compaction keeps exactly the rows the port's row-exact
-    # compaction keeps, and fg_cap drops can be compared exactly
-    valid = np.repeat(rng.uniform(size=(batch, n // 8)) > 0.3, 8,
-                      axis=1).astype(np.float32)
+    # validity row by row: where fg_cap binds, both packages keep the same
+    # groups of 8 rows and count the same dropped valid rows
+    valid = (rng.uniform(size=(batch, n)) > 0.3).astype(np.float32)
     cams = []
     for b in range(batch):
         K = np.array([[0.8 * RES, 0, RES / 2 + 2 * b],
@@ -198,3 +196,46 @@ def test_pack_sort_key_matches_jax(rng):
     np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
     with pytest.raises(ValueError, match="depth bits"):
         pack_sort_key(torch.tensor(tile), torch.tensor(depth), 1 << 20)
+
+
+def test_compaction_matches_jax_when_fg_cap_binds(rng):
+    """Compaction with a binding fg_cap and a validity mask that is not in
+    runs of 8 rows: `compact_gaussian_inputs` (N not a multiple of 8) and
+    `compact_valid` keep JAX's rows in JAX's slots, bit for bit, dead rows
+    of kept groups included, and count the same dropped valid rows; both
+    raise where JAX raises."""
+    from gps_gaussian_tpu.infer.freeview import compact_valid as jvalid
+    from gps_gaussian_tpu.kernels.rasterizer import \
+        compact_gaussian_inputs as jcompact
+
+    from gps_gaussian_tpu_torch.infer.freeview import compact_valid
+    from gps_gaussian_tpu_torch.kernels.rasterizer import \
+        compact_gaussian_inputs
+
+    names = ("xyz", "rgb", "rot", "scale", "opacity", "valid")
+    for n, cap in ((1004, 480), (1000, 400)):
+        (xyz, rgb, q, scale, opacity, valid), _ = _scene(rng, n, 1)
+        valid[0, ::3] = 0.0          # no group of 8 rows is wholly valid
+        arrays = dict(zip(names, (xyz, rgb, q, scale, opacity, valid)))
+        tg = FlatGaussians(**{k: torch.tensor(v) for k, v in arrays.items()})
+        ours, n_t = compact_gaussian_inputs(tg, 0, cap)
+        ref, n_j = jcompact(*(jnp.asarray(arrays[k][0]) for k in
+                              ("xyz", "rot", "scale", "opacity", "rgb",
+                               "valid")), cap)
+        assert int(n_t) == int(n_j) > 0
+        for a, b in zip(ours, ref):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        # the old row-exact compaction kept the first `cap` valid rows
+        assert int(n_t) > int(valid.sum()) - cap
+        if n % 8 == 0:
+            gt, n_t = compact_valid(tg, cap)
+            gj, n_j = jvalid(JFlat(**{k: jnp.asarray(v)
+                                      for k, v in arrays.items()}), cap)
+            assert int(n_t) == int(n_j) > 0
+            for k in names:
+                np.testing.assert_array_equal(getattr(gt, k).numpy(),
+                                              np.asarray(getattr(gj, k)), k)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        compact_gaussian_inputs(tg, 0, 404)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        compact_valid(tg, 404)

@@ -51,7 +51,20 @@ Phases, one line of output each:
                process at batch 2; rasterize_tile_sharded against the
                band-by-band render; a world-2 Trainer whose rank-0
                checkpoint resumes at world 1
-Each of phases 4, 5 and 7-12 zeroes the launch counts just before it
+ 13. scans    - two textured humanoid meshes made from a seed (245,760
+               triangles each) written as OBJ + png, rendered into a
+               dataset tree by data/render_scans.py render_dataset at
+               1024^2 with 2048^2 targets on the host's C++ rasterizer
+               (its times printed); the val scan read by StereoHumanDataset
+               and its view 3 rendered at 2048^2 on the committed trained
+               weights, composite_fwd held to its plain version, the PSNR
+               against 3_hr.jpg printed (needs Pillow)
+ 14. reference-import - the committed weights written as a reference .pth
+               ({'network': state_dict}) and read by
+               utils/torch_import.py load_reference_checkpoint: the frame
+               of phase 8 bit-equal to load_renderer's; a stage-1 file
+               (no gs_parm_regresser.*) through restore_params_partial
+Each of phases 4, 5 and 7-14 zeroes the launch counts just before it
 drives its path and reads them just after (the ranks of phase 12 in their
 own processes, which send their counts back). The synthetic scans of phases 7
 and 8 render in worker processes while phases 1-3 run.
@@ -82,15 +95,19 @@ import numpy as np
 import torch
 
 from gps_gaussian_tpu_torch import native
+from gps_gaussian_tpu_torch.data import render_scans
 from gps_gaussian_tpu_torch.data.loader import collate
-from gps_gaussian_tpu_torch.data.thuman import DatasetConfig
+from gps_gaussian_tpu_torch.data.synth import ring_camera
+from gps_gaussian_tpu_torch.data.thuman import (DatasetConfig,
+                                                StereoHumanDataset)
 from gps_gaussian_tpu_torch.geometry import cameras
 from gps_gaussian_tpu_torch.infer.freeview import (FreeviewRenderer,
                                                    compact_valid,
                                                    load_renderer)
 from gps_gaussian_tpu_torch.kernels import build
 from gps_gaussian_tpu_torch.kernels.rasterizer import (
-    RasterizeConfig, compact_gaussian_inputs, rasterize)
+    RasterizeConfig, compact_gaussian_inputs, rasterize,
+    rasterize_reference_single)
 from gps_gaussian_tpu_torch.kernels.rasterizer.composite import (
     composite_bwd, composite_bwd_plain, composite_fwd, composite_fwd_plain,
     kernel_occupancy)
@@ -100,22 +117,25 @@ from gps_gaussian_tpu_torch.kernels.rasterizer.sharded import (render_band,
                                                                render_bands)
 from gps_gaussian_tpu_torch.kernels.rasterizer.preprocess import \
     project_gaussians
-from gps_gaussian_tpu_torch.kernels.rasterizer.reference import \
-    composite_reference
 from gps_gaussian_tpu_torch.models.layers import init_weights
 from gps_gaussian_tpu_torch.testing import (SilhouetteDataset,
                                             SynthMemoryDataset, build_scene,
-                                            scene_camera,
+                                            humanoid_mesh, scene_camera,
                                             silhouette_stereo_batch,
                                             silhouette_train_batch,
-                                            spawn_ranks, synth_scans)
+                                            spawn_ranks, synth_scans,
+                                            write_scan)
+from gps_gaussian_tpu_torch.train import losses
 from gps_gaussian_tpu_torch.train.config import load_config
 from gps_gaussian_tpu_torch.train.state import (create_state,
-                                                onecycle_linear)
+                                                onecycle_linear,
+                                                restore_params_partial)
 from gps_gaussian_tpu_torch.train.trainer import (Trainer, make_model,
                                                   make_raster_config,
                                                   make_train_step)
 from gps_gaussian_tpu_torch.utils.containers import FlatGaussians
+from gps_gaussian_tpu_torch.utils.torch_import import \
+    load_reference_checkpoint
 
 # configs/stage2.yaml written out, so the run needs no PyYAML
 # (tests/test_torch_port_package.py holds the two equal)
@@ -484,22 +504,22 @@ def oracle_scene(dev):
     return res, n, cam, g, weight
 
 
-def oracle_image(g, cam, bg, res):
-    p = project_gaussians(g.xyz[0], g.rot[0], g.scale[0], g.opacity[0],
-                          g.rgb[0], g.valid[0], cam.view[0], cam.proj[0],
-                          cam.tanfovx[0], cam.tanfovy[0], res, res)
-    return composite_reference(p, bg, res, res)
-
-
 def phase_oracle(dev) -> None:
     res, n, cam, g, weight = oracle_scene(dev)
     bg = torch.tensor([0.2, 0.2, 0.2], device=dev)
     rcfg = RasterizeConfig(16, 512)
+
+    def oracle(gl):
+        return rasterize_reference_single(
+            gl.xyz[0], gl.rot[0], gl.scale[0], gl.opacity[0], gl.rgb[0],
+            gl.valid[0], cam.view[0], cam.proj[0], cam.tanfovx[0],
+            cam.tanfovy[0], res, res, bg)
+
     img, aux = rasterize(g, cam, bg, rcfg, device=dev)
-    err = float((img[0] - oracle_image(g, cam, bg, res)).abs().max())
-    print(f"[oracle] rasterize on the GPU vs composite_reference at {res}^2, "
-          f"{n} gaussians: max abs err {err:.3g} (tolerance {ORACLE_TOL})",
-          flush=True)
+    err = float((img[0] - oracle(g)).abs().max())
+    print(f"[oracle] rasterize on the GPU vs rasterize_reference_single at "
+          f"{res}^2, {n} gaussians: max abs err {err:.3g} (tolerance "
+          f"{ORACLE_TOL})", flush=True)
     check(err <= ORACLE_TOL and int(aux.num_dropped.sum()) == 0,
           "rasterize vs oracle")
 
@@ -512,7 +532,7 @@ def phase_oracle(dev) -> None:
         return [leaves[k].grad for k in names]
 
     ours = grads(lambda gl: rasterize(gl, cam, bg, rcfg, device=dev)[0])
-    ref = grads(lambda gl: oracle_image(gl, cam, bg, res)[None])
+    ref = grads(lambda gl: oracle(gl)[None])
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     build.reset_launch_counts()
@@ -521,9 +541,9 @@ def phase_oracle(dev) -> None:
     dead = g.valid[0] < 0.5
     dead_zero = all(bool((a[0][dead] == 0).all()) for a in ours)
     print(f"[grad-oracle] gradients of a seeded weighted image sum through "
-          f"rasterize on the GPU vs autograd through composite_reference at "
-          f"{res}^2: max abs err (xyz rot scale opacity rgb) {fmt(err)} "
-          f"beside max abs gradient {fmt(mag)} (tolerance "
+          f"rasterize on the GPU vs autograd through "
+          f"rasterize_reference_single at {res}^2: max abs err (xyz rot "
+          f"scale opacity rgb) {fmt(err)} beside max abs gradient {fmt(mag)} (tolerance "
           f"{GRAD_ORACLE_RTOL} of each input's largest gradient); invalid "
           f"rows exactly zero: {dead_zero}; launches {launches}", flush=True)
     check(all(e <= GRAD_ORACLE_RTOL * m for e, m in zip(err, mag)),
@@ -1499,6 +1519,157 @@ def phase_ddp(dev, frame: dict, exp_root: str) -> dict:
     return {"launches": launches}
 
 
+def timed_raster(verts, faces, uv, tex, res: int, reps: int = 3):
+    """The C++ mesh rasterizer's host ms for one res^2 view of a normalised
+    scan from the ring (the median of `reps` calls), as render_scan_views
+    calls it."""
+    intr, extr = ring_camera(0.3, res)
+    color = np.full((len(verts), 3), 0.7, np.float32)
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        native.rasterize_mesh(verts, faces, color, intr, extr, res, res,
+                              uv=uv, tex=tex)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def phase_scans(dev, work_dir: str, res: int = 1024) -> dict:
+    """Scan rendering on the host, then the rendered val scan through the
+    trained renderer on the card: two seeded textured humanoids (OBJ +
+    png), render_dataset at res^2 with (2 res)^2 targets, StereoHumanDataset
+    on the tree (v2 cache), view 3 rendered at (2 res)^2 on the committed
+    weights, composite_fwd held to its plain version, the PSNR against
+    3_hr.jpg printed. Without Pillow, write_scan raises and the run
+    fails."""
+    check(native.available(), "the C++ mesh rasterizer is built")
+    t0 = time.perf_counter()
+    scans = os.path.join(work_dir, "scans")
+    out = os.path.join(work_dir, "tree")
+    meshes = [humanoid_mesh(SEED + i) for i in range(2)]
+    for i, mesh in enumerate(meshes):
+        write_scan(scans, f"{i:04d}", *mesh)
+    made_s = time.perf_counter() - t0
+    scan_s, t1 = [], time.perf_counter()
+    done = []
+    for name, split in render_scans.render_dataset(scans, out, res=res,
+                                                   hr=True, val_every=2):
+        done.append((name, split))
+        scan_s.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+    check(done == [("0000", "train"), ("0001", "val")], "two scans rendered")
+    verts, faces, uv = render_scans.read_obj(
+        os.path.join(scans, "0001", "0001.obj"))
+    verts = render_scans.normalize_scan(verts)
+    ms_1k = timed_raster(verts, faces, uv, meshes[1][3], res)
+    ms_2k = timed_raster(verts, faces, uv, meshes[1][3], 2 * res)
+    n_files = sum(len(f) for _, _, f in os.walk(out))
+
+    cfg = load_config(None, **STAGE2_OVERRIDES)
+    cfg = dataclasses.replace(cfg, dataset=dataclasses.replace(
+        cfg.dataset, src_res=res))
+    ds = StereoHumanDataset(DatasetConfig(
+        data_root=out, src_res=res, val_novel_ids=(3,), use_hr_img=True,
+        use_processed_data=True), "val")
+    check(ds.scans == ["0001"], "the val split holds scan 0001")
+    t2 = time.perf_counter()
+    sample = ds.get_sample(0, (3,), np.random.default_rng(SEED))
+    read_s = time.perf_counter() - t2
+    batch = collate([sample])
+    renderer = load_renderer(cfg, TRAINED_CKPT, ds, device=dev)
+    cam = batch.novel.camera.to(dev)
+    out_res = cam.height
+
+    build.reset_launch_counts()
+    gauss, fwd_ms = sync_ms(lambda: renderer.gaussians(batch))
+    (img, aux), view_ms = sync_ms(lambda: renderer.render(gauss, cam))
+    launches = dict(build.LAUNCHES)
+    fg_drops, pair_drops = renderer.flush_drop_report()
+    target = batch.novel.img.to(dev)
+    check(tuple(img.shape) == tuple(target.shape) == (1, 2 * res, 2 * res, 3)
+          and bool(torch.isfinite(img).all()), "scan view 3 image")
+    psnr = float(losses.psnr(img, target)[0])
+    props, start, count = kernel_inputs(gauss, cam, renderer.rcfg)
+    tiles = -(-out_res // 16)
+    err_rgb, err_t, work, _ = compare_composite(props, start, count, tiles,
+                                                tiles)
+    print(f"[scans] {len(done)} seeded humanoid scans, {len(faces)} "
+          f"triangles and {len(verts)} vertices each, 1024^2 texture, made "
+          f"and written as OBJ + png in {made_s:.2f} s; render_dataset(res="
+          f"{res}, hr=True, val_every=2) {done}: {n_files} files, "
+          f"{[round(x, 2) for x in scan_s]} s a scan (OBJ read, 5 views, 3 "
+          f"{2 * res}^2 targets, image writes); C++ rasterizer "
+          f"({os.cpu_count()} host cores, min(cores, 16) threads) "
+          f"{ms_1k:.1f} ms a {res}^2 view, {ms_2k:.1f} ms a {2 * res}^2 _hr "
+          f"view "
+          f"(host clock, median of 3); StereoHumanDataset val sample (v2 "
+          f"cache built) in {read_s:.2f} s; trained weights {TRAINED_CKPT}: "
+          f"forward {fwd_ms:.2f} ms, view 3 at {out_res}^2 {view_ms:.2f} ms, "
+          f"{int(gauss.valid.sum())} live gaussians, drops (dup, fg, pair) "
+          f"{counters(aux)}, flushed fg {fg_drops} pair {pair_drops}; PSNR "
+          f"against 3_hr.jpg {psnr:.4f} dB (printed, not gated); "
+          f"composite_fwd {int(count.sum())} live pairs, {work} pair-pixel "
+          f"evaluations, max abs err rgb {err_rgb:.3g} T {err_t:.3g}; "
+          f"launches {launches}; whole phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(np.isfinite(psnr), "finite PSNR")
+    check_fwd(err_rgb, err_t, "on the rendered scan")
+    check(launches.get("composite_fwd", 0) == 1, "composite_fwd once")
+    return {"launches": launches, "err": max(err_rgb, err_t)}
+
+
+def phase_reference_import(dev, ds: dict, work_dir: str) -> dict:
+    """The committed weights as a reference .pth ({'network': state_dict})
+    through load_reference_checkpoint: the [trained-serving] frame's view
+    0.5 bit-equal to load_renderer's; then a stage-1 file (no
+    gs_parm_regresser.*) through restore_params_partial."""
+    cfg = load_config(None, **STAGE2_OVERRIDES)
+    params = torch.load(os.path.join(TRAINED_CKPT, "ckpt_1200.pt"),
+                        map_location="cpu", weights_only=True)["params"]
+    path = os.path.join(work_dir, "reference.pth")
+    torch.save({"network": params}, path)
+    path1 = os.path.join(work_dir, "reference_stage1.pth")
+    torch.save({"network": {k: v for k, v in params.items()
+                            if not k.startswith("gs_parm_regresser.")}},
+               path1)
+    serve = ds["serve"]
+    renderers = [load_renderer(cfg, TRAINED_CKPT, serve, device=dev),
+                 FreeviewRenderer(cfg, load_reference_checkpoint(path), serve,
+                                  device=dev)]
+    sample = serve.get_test_sample(0)
+    batch = collate([sample]).to(dev)
+    out_res = 2 * cfg.dataset.src_res
+    cam = renderers[0].novel_camera_at(sample, 0.5, out_res, out_res)
+
+    build.reset_launch_counts()
+    outs = []
+    for r in renderers:
+        outs.append(r.render(r.gaussians(batch), cam))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    (img_a, aux_a), (img_b, aux_b) = outs
+    same = (torch.equal(img_a, img_b)
+            and torch.equal(aux_a.transmittance, aux_b.transmittance)
+            and counters(aux_a) == counters(aux_b))
+
+    model = make_model(cfg, with_gs=True)
+    n_stage1 = len(make_model(cfg, with_gs=False).state_dict())
+    n = restore_params_partial(load_reference_checkpoint(path1), model)
+    print(f"[reference-import] {TRAINED_CKPT}/ckpt_1200.pt written as a "
+          f"reference .pth ({{'network': state_dict}}, {len(params)} "
+          f"tensors) and read by load_reference_checkpoint: the "
+          f"[trained-serving] frame's {out_res}^2 view 0.5 image, T and drop "
+          f"counters {counters(aux_b)} bit-equal to load_renderer's: {same}; "
+          f"a stage-1 file ({n_stage1} tensors) through "
+          f"restore_params_partial into a stage-2 model: {n} of "
+          f"{len(model.state_dict())} tensors restored; launches {launches}",
+          flush=True)
+    check(same, "the imported weights render load_renderer's bits")
+    check(n == n_stage1, "every stage-1 tensor restored")
+    check(launches.get("composite_fwd", 0) == 2, "composite_fwd per render")
+    return {"launches": launches}
+
+
 def main(argv) -> int:
     if argv and (len(argv) != 2 or argv[0] != "--profile"):
         print("usage: python3 chip_smoke.py [--profile DIR]", file=sys.stderr)
@@ -1518,7 +1689,7 @@ def main(argv) -> int:
     except ImportError:
         pil = "no Pillow"
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"{smi}; {pil} (the phases below do not need it)", flush=True)
+          f"{smi}; {pil} ([scans] needs it)", flush=True)
 
     # the synthetic scans of the dataset phases render on the host while the
     # kernels build and are checked; the timed phases start after them
@@ -1551,11 +1722,14 @@ def main(argv) -> int:
         stair = phase_staircase(dev, trained_serv)
         sharded = phase_sharded_render(dev, trained_serv)
         ddp = phase_ddp(dev, trained_serv, exp_root)
+        scans = phase_scans(dev, exp_root)
+        imported = phase_reference_import(dev, datasets, exp_root)
     finally:
         shutil.rmtree(exp_root, ignore_errors=True)
     paths = {"serving": serv, "training": train, "trained": trained,
              "trained_serving": trained_serv, "trainer": trainer,
-             "staircase": stair, "sharded_render": sharded, "ddp": ddp}
+             "staircase": stair, "sharded_render": sharded, "ddp": ddp,
+             "scans": scans, "reference_import": imported}
 
     def launches(name):
         per = {f"launches_{path}": out["launches"].get(name, 0)
@@ -1566,7 +1740,7 @@ def main(argv) -> int:
         "name": "composite_fwd", "route": "cuda", "source": FWD_SRC,
         "replaces": f"{PALLAS}:767", **launches("composite_fwd"),
         "max_abs_err": max(k512["err"], main_f["err"], main_b["fwd_err"],
-                           trained_serv["err"], stair["err"]),
+                           trained_serv["err"], stair["err"], scans["err"]),
         "ms": main_f["ms"], "plain_ms": main_f["plain_ms"],
         "bound_ms": main_f["bound_ms"], "bound_by": main_f["bound_by"],
         "library_ms": None}, {

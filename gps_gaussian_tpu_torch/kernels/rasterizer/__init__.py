@@ -24,6 +24,8 @@ from gps_gaussian_tpu_torch.kernels.rasterizer.pair_sort import (
     render_sorted, render_sorted_staircase, stack_rows)
 from gps_gaussian_tpu_torch.kernels.rasterizer.preprocess import \
     project_gaussians
+from gps_gaussian_tpu_torch.kernels.rasterizer.reference import \
+    composite_reference
 from gps_gaussian_tpu_torch.utils.containers import FlatGaussians, NovelCamera
 from gps_gaussian_tpu_torch.utils.device import resolve_device
 
@@ -182,3 +184,15 @@ def rasterize_single(xyz, rot, scale, opacity, color, valid, view, proj,
                       height=height, width=width)
     img, aux = rasterize(gauss, cam, bg_color, cfg, device=device)
     return img[0], RasterizeAux(*(x[0] for x in aux))
+
+
+def rasterize_reference_single(xyz, rot, scale, opacity, color, valid,
+                               view, proj, tanfovx, tanfovy, height: int,
+                               width: int, bg_color) -> torch.Tensor:
+    """The exact slow oracle of `rasterize_single` (JAX :248): every pixel
+    composites all N Gaussians (`reference.composite_reference`), on the
+    inputs' device. Returns the image (H, W, 3); differentiable."""
+    projd = project_gaussians(xyz, rot, scale, opacity, color, valid, view,
+                              proj, tanfovx, tanfovy, height, width)
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=xyz.device)
+    return composite_reference(projd, bg, height, width)

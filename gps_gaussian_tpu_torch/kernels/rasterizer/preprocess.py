@@ -1,8 +1,9 @@
 """Per-Gaussian projection to screen space (EWA splatting).
 
 Counterpart of gps_gaussian_tpu/kernels/rasterizer/preprocess.py
-`project_gaussians` :75: quaternion -> covariance, camera projection, EWA 2D
-covariance with the 0.3 low-pass, conic + radius, near and determinant cull.
+(`quat_to_rotmat` :40, `build_cov3d` :66, `project_gaussians` :75):
+quaternion -> covariance, camera projection, EWA 2D covariance with the 0.3
+low-pass, conic + radius, near and determinant cull.
 The 3x3 and 4x4 contractions are written elementwise in the same order as
 the JAX code, so both round alike. `view`/`proj` are column-vector 4x4
 matrices (NovelCamera); pixel centres sit at integer coordinates.
@@ -26,19 +27,42 @@ class Projected(NamedTuple):
     color: torch.Tensor    # (N, 3)
 
 
+def _rotation_entries(q: torch.Tensor):
+    """The 3 x 3 entries of the rotation of unit quaternions (..., 4)
+    (w, x, y, z), as nested tuples of (...) tensors."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return ((1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+             2 * (x * z + w * y)),
+            (2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+             2 * (y * z - w * x)),
+            (2 * (x * z - w * y), 2 * (y * z + w * x),
+             1 - 2 * (x * x + y * y)))
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) unit quaternions (w, x, y, z) -> (..., 3, 3) rotations."""
+    return torch.stack([torch.stack(row, dim=-1)
+                        for row in _rotation_entries(q)], dim=-2)
+
+
 def build_cov3d_rows(rot: torch.Tensor, scale: torch.Tensor):
     """Sigma = R diag(s^2) R^T as its 6 unique entries, each (N,):
     (s00, s01, s02, s11, s12, s22)."""
-    w, x, y, z = rot[:, 0], rot[:, 1], rot[:, 2], rot[:, 3]
-    R = ((1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)),
-         (2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)),
-         (2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)))
+    R = _rotation_entries(rot)
     m = [[R[i][k] * scale[:, k] for k in range(3)] for i in range(3)]
 
     def dot(i, j):
         return m[i][0] * m[j][0] + m[i][1] * m[j][1] + m[i][2] * m[j][2]
 
     return dot(0, 0), dot(0, 1), dot(0, 2), dot(1, 1), dot(1, 2), dot(2, 2)
+
+
+def build_cov3d(rot: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Sigma = R diag(s^2) R^T as (N, 3, 3) matrices."""
+    s00, s01, s02, s11, s12, s22 = build_cov3d_rows(rot, scale)
+    return torch.stack([torch.stack([s00, s01, s02], -1),
+                        torch.stack([s01, s11, s12], -1),
+                        torch.stack([s02, s12, s22], -1)], dim=-2)
 
 
 def project_gaussians(xyz: torch.Tensor, rot: torch.Tensor,

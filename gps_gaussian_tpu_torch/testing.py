@@ -16,6 +16,9 @@ files and no image codec: `SynthMemoryDataset` renders the scenes of
 flow and sampling code on them; `SilhouetteDataset` serves silhouette
 stereo pairs at any width, for full-width training runs.
 
+`humanoid_mesh` and `write_scan` make a textured scan for
+`data/render_scans.py` from a seed (no scan is downloaded).
+
 `spawn_ranks` runs one of the rank workers below (`rank_render`,
 `rank_train_steps`, `rank_eval`, `rank_trainer`, or several in turn with
 `rank_sequence`) in spawned processes joined by a gloo group, for the tests
@@ -263,6 +266,88 @@ def synth_scans(split: str, n: int, seed: int = 1314) -> dict:
     scans of `split` ("train" or "val")."""
     first = 0 if split == "train" else 1000
     return {f"{first + i:04d}": seed + first + i for i in range(n)}
+
+
+_ICOSAHEDRON_FACES = np.array([
+    [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11], [1, 5, 9],
+    [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2],
+    [3, 2, 6], [3, 6, 8], [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10],
+    [8, 6, 7], [9, 8, 1]])
+
+
+def icosphere(level: int):
+    """The unit icosphere subdivided `level` times: (verts (10 * 4^level + 2,
+    3) f64, faces (20 * 4^level, 3) i64)."""
+    t = (1 + 5 ** 0.5) / 2
+    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+                  [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+                  [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]])
+    v = v / np.linalg.norm(v, axis=1, keepdims=True)
+    f = _ICOSAHEDRON_FACES
+    for _ in range(level):
+        edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]],
+                                        f[:, [2, 0]]]), axis=1)
+        uniq, inv = np.unique(edges, axis=0, return_inverse=True)
+        mid = v[uniq[:, 0]] + v[uniq[:, 1]]
+        m01, m12, m20 = (len(v) + inv.reshape(3, -1))
+        v = np.concatenate([v, mid / np.linalg.norm(mid, axis=1,
+                                                    keepdims=True)])
+        a, b, c = f.T
+        f = np.concatenate([np.stack(tri, axis=1) for tri in (
+            (a, m01, m20), (b, m12, m01), (c, m20, m12), (m01, m12, m20))])
+    return v, f
+
+
+def humanoid_mesh(seed: int, levels=(5, 4), tex_res: int = 1024):
+    """A textured stand-in for a human scan, made from a seed: the spheres
+    of data/synth.py `humanoid_spheres` as icospheres, the head and torso
+    subdivided levels[0] times and the limbs levels[1] times (245,760
+    triangles at (5, 4)). Each sphere maps its longitude and latitude into
+    its own band of a tex_res^2 texture in its colour, shaded by seeded
+    noise. Returns (verts (V, 3) f32, faces (F, 3) i32, uv (V, 2) f32,
+    tex (tex_res, tex_res, 3) f32 in [0, 1])."""
+    rng = np.random.default_rng(seed)
+    centers, radii, colors = synth.humanoid_spheres(rng)
+    n = len(centers)
+    spheres = {lv: icosphere(lv) for lv in set(levels)}
+    verts, faces, uv = [], [], []
+    base = 0
+    for k, (c, r) in enumerate(zip(centers, radii)):
+        v, f = spheres[levels[0] if k < 6 else levels[1]]
+        lon = np.arctan2(v[:, 2], v[:, 0]) / (2 * np.pi) + 0.5
+        lat = np.arccos(np.clip(v[:, 1], -1, 1)) / np.pi
+        verts.append(c + r * v)
+        faces.append(f + base)
+        uv.append(np.stack([lon, (k + 0.02 + 0.96 * lat) / n], axis=1))
+        base += len(v)
+    band = (np.arange(tex_res) * n) // tex_res
+    noise = np.kron(rng.uniform(0.7, 1.0, (32, 32)),
+                    np.ones((tex_res // 32, tex_res // 32)))
+    tex = colors[band][:, None, :] * noise[..., None]
+    return (np.concatenate(verts).astype(np.float32),
+            np.concatenate(faces).astype(np.int32),
+            np.concatenate(uv).astype(np.float32), tex.astype(np.float32))
+
+
+def write_scan(scans_dir, name: str, verts, faces, uv=None, tex=None):
+    """Write a scan as `data/render_scans.py render_dataset` reads it:
+    <scans_dir>/<name>/<name>.obj (v, vt, and f with v/vt indices) and,
+    with a texture, <scans_dir>/<name>/tex.png (needs Pillow)."""
+    d = Path(scans_dir) / name
+    d.mkdir(parents=True, exist_ok=True)
+    lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in verts.tolist()]
+    if uv is not None:
+        lines += [f"vt {u:.6f} {v:.6f}" for u, v in uv.tolist()]
+        lines += [f"f {a}/{a} {b}/{b} {c}/{c}"
+                  for a, b, c in (faces + 1).tolist()]
+    else:
+        lines += [f"f {a} {b} {c}" for a, b, c in (faces + 1).tolist()]
+    (d / f"{name}.obj").write_text("\n".join(lines) + "\n")
+    if tex is not None:
+        from PIL import Image
+
+        Image.fromarray(np.round(np.clip(tex, 0, 1) * 255).astype(
+            np.uint8)).save(d / "tex.png")
 
 
 class SynthMemoryDataset(StereoHumanDataset):

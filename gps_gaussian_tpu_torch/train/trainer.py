@@ -23,6 +23,7 @@ parameter search is needed.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import subprocess
 import time
@@ -50,7 +51,7 @@ from gps_gaussian_tpu_torch.train.state import TrainState
 from gps_gaussian_tpu_torch.utils.containers import NovelView, StereoSample
 from gps_gaussian_tpu_torch.utils.device import resolve_device
 from gps_gaussian_tpu_torch.utils.images import write_image
-from gps_gaussian_tpu_torch.utils.profiling import StepTimer
+from gps_gaussian_tpu_torch.utils.profiling import StepTimer, maybe_trace
 
 log = logging.getLogger("gps_tpu_torch.train")
 
@@ -238,13 +239,19 @@ def stage1_preview(batch: StereoSample, flow_up: torch.Tensor):
 
 
 def make_eval_step(model: GPSGaussianModel, cfg: Config, stage: str,
-                   rcfg: RasterizeConfig, device="cuda"):
+                   rcfg: RasterizeConfig, device="cuda",
+                   counts_batch: bool = True):
     """Returns `eval_step(batch, weight) -> (metrics, img_pred)`.
 
     `weight` (B,) f32 masks samples out of the means. Every metric is a
     (numerator, denominator) pair, so that sums over batches stay exact
     under any weights. Stage 2 renders the novel view; stage 1 returns the
-    point-splat preview when the batch has a novel view, else None."""
+    point-splat preview when the batch has a novel view, else None.
+
+    A drop counter is (the batch's drops, 1): its ratio over a sweep is the
+    mean drops per batch, every row counted whatever its weight. Where
+    several steps share one batch (one per rank), only the step with
+    `counts_batch` contributes the 1."""
     dev = resolve_device(device)
     _check_placement(model, dev)
     bg = torch.tensor(cfg.dataset.bg_color, dtype=torch.float32, device=dev)
@@ -269,7 +276,7 @@ def make_eval_step(model: GPSGaussianModel, cfg: Config, stage: str,
             metrics["val_psnr"] = (
                 (losses.psnr(img_pred, batch.novel.img) * weight).sum(),
                 weight.sum())
-            one = torch.ones((), dtype=torch.float32, device=dev)
+            one = torch.tensor(float(counts_batch), device=dev)
             metrics.update({k: (v, one) for k, v in
                             drop_metrics(raux, prefix="val_").items()})
         elif batch.novel is not None:
@@ -284,10 +291,14 @@ def make_sharded_eval_step(model: GPSGaussianModel, cfg: Config,
                            group: sharding.Group, device="cuda"):
     """`make_eval_step` on this rank's rows, with every (numerator,
     denominator) pair summed over `group` (JAX :167-189), so each rank sees
-    the global weighted ratio. The image is this rank's rows."""
-    base = make_eval_step(model, cfg, stage, rcfg, device)
+    the global weighted ratio. Every rank adds its rows' drops, and rank 0
+    alone counts the batch, so a drop counter stays the mean drops per
+    batch (JAX counts the batch once per device). The image is this rank's
+    rows."""
     if group is None:
-        return base
+        return make_eval_step(model, cfg, stage, rcfg, device)
+    base = make_eval_step(model, cfg, stage, rcfg, device,
+                          counts_batch=dist.get_rank(group) == 0)
 
     def eval_step(batch: StereoSample, weight: torch.Tensor):
         metrics, img_pred = base(batch, weight)
@@ -429,8 +440,8 @@ class Trainer:
         record.loss_freq steps and at the end; the val sweep runs every
         record.eval_freq steps, and once before any update with
         `eval_first`. trace_steps=(lo, hi) writes a torch.profiler trace of
-        that step window, rank 0's, to trace_dir (default
-        <exp>/logs/profile)."""
+        that step window, rank 0's, to trace_dir/trace_<lo>_<hi>.json
+        (default directory <exp>/logs/profile)."""
         cfg = self.cfg
         total = num_steps or cfg.num_steps
         running: dict = {}
@@ -440,28 +451,20 @@ class Trainer:
         saved = None
         if eval_first and self.state.step == 0:
             self.run_eval(0)
-        prof = None
+        trace = contextlib.ExitStack()
         for step in range(self.state.step, total):
-            if trace_steps and step == trace_steps[0] and prof is None \
-                    and self.is_main:
-                activities = [torch.profiler.ProfilerActivity.CPU]
-                if self.device.type == "cuda":
-                    activities.append(torch.profiler.ProfilerActivity.CUDA)
-                prof = torch.profiler.profile(activities=activities)
-                prof.start()
+            if trace_steps and step == trace_steps[0] and self.is_main:
+                trace.enter_context(maybe_trace(
+                    trace_dir or self.exp_dir / "logs" / "profile",
+                    f"trace_{trace_steps[0]}_{trace_steps[1]}.json"))
             wait.start()
             batch = next(self.train_loader).to(self.device)
             wait.stop()
             timer.start()
             metrics = self.train_step(batch)
             timer.stop()
-            if prof is not None and step + 1 >= trace_steps[1]:
-                prof.stop()
-                out = Path(trace_dir or self.exp_dir / "logs" / "profile")
-                out.mkdir(parents=True, exist_ok=True)
-                prof.export_chrome_trace(
-                    str(out / f"trace_{trace_steps[0]}_{step + 1}.json"))
-                prof = None
+            if trace_steps and step + 1 == trace_steps[1]:
+                trace.close()
 
             for k, v in metrics.items():
                 running[k] = running.get(k, 0.0) + float(v)
@@ -487,17 +490,23 @@ class Trainer:
                 saved = self._save(ckpt_dir)
             if (step + 1) % cfg.record.eval_freq == 0:
                 self.run_eval(step + 1)
+        trace.close()  # a window that outlasts the run ends with it
         if saved is None or saved.name != f"ckpt_{self.state.step}.pt":
             self._save(ckpt_dir)
         return self.state
 
     def run_eval(self, step: int, max_batches: Optional[int] = None) -> dict:
         """Deterministic full sweep of the val set (the reference's full val
-        loop, not random batches), so val metrics compare run to run. Each
-        rank evaluates its rows of every batch and the sums are taken over
-        the group, so the result does not depend on the number of ranks.
-        The first batch's first image is written to <exp>/show/<step>.jpg
-        when an image writer is importable."""
+        loop, not random batches), so val metrics compare run to run.
+        PSNR, EPE and 1px are means over the weighted rows; the weight-0
+        rows that wrap the last batch count in neither part. A drop counter
+        is the mean drops per val batch, as in the JAX package on one
+        device: it is not weighted, so the wrapped rows' drops count. Each
+        rank evaluates its rows of every batch, every rank adds its drops,
+        rank 0 alone counts the batches, and the sums are taken over the
+        group, so the result does not depend on the number of ranks. The
+        first batch's first image is written to <exp>/show/<step>.jpg when
+        an image writer is importable."""
         num_agg: dict = {}
         den_agg: dict = {}
         preview = None

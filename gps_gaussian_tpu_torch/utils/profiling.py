@@ -1,15 +1,19 @@
-"""Step timing.
+"""Step timing and tracing hooks.
 
-Counterpart of gps_gaussian_tpu/utils/profiling.py `StepTimer` :19: an
-exponential moving average of step latency on the host clock, with the
-derived throughput. PyTorch returns before the device has finished, so
+Counterpart of gps_gaussian_tpu/utils/profiling.py: `StepTimer` :19, an
+exponential moving average of step latency on the host clock with the
+derived throughput (PyTorch returns before the device has finished, so
 `stop` synchronises the device first; without that the clock would measure
-the enqueue, not the step.
+the enqueue, not the step); `maybe_trace` :49, a torch.profiler trace of a
+block written as a Chrome trace; `annotate` :62, a named region on the
+profiler's timeline.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -57,3 +61,26 @@ class StepTimer:
     @property
     def pairs_per_s(self) -> float:
         return self.batch_size / self.ema_s if self.ema_s else 0.0
+
+
+@contextlib.contextmanager
+def maybe_trace(trace_dir: Optional[str], name: str = "trace.json"):
+    """torch.profiler trace of the block (host, and the card when there is
+    one) written to trace_dir/name as a Chrome trace; a no-op when
+    trace_dir is None or empty."""
+    if not trace_dir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    out = Path(trace_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / name))
+
+
+def annotate(name: str):
+    """A named region on the profiler's timeline (a context manager)."""
+    return torch.profiler.record_function(name)

@@ -25,16 +25,21 @@ from gps_gaussian_tpu.train import sharding as jsharding
 from gps_gaussian_tpu.train import trainer as jtrainer
 
 from gps_gaussian_tpu_torch.data import loader
-from gps_gaussian_tpu_torch.testing import (SilhouetteDataset, spawn_ranks)
+from gps_gaussian_tpu_torch.testing import (SilhouetteDataset,
+                                            fake_stereo_batch, spawn_ranks)
 from gps_gaussian_tpu_torch.train import config as tconfig
 from gps_gaussian_tpu_torch.train import sharding
+from gps_gaussian_tpu_torch.train import trainer as ttrainer
 from gps_gaussian_tpu_torch.train.trainer import Trainer
 
 from test_torch_port_ddp_step import BATCH, RES, both  # noqa: F401
 
 def test_two_rank_eval_matches_jax_mesh(both):
-    """Every (numerator, denominator) pair summed over the ranks, against
-    JAX's sums over the mesh; the second sample is weighted out."""
+    """PSNR, EPE and 1px: every (numerator, denominator) pair summed over
+    the ranks, against JAX's sums over the mesh; the second sample is
+    weighted out. A drop counter's ratio equals one process's: JAX's mesh
+    counts the batch once per device, which halves it (a fault the port
+    does not share)."""
     tmp, tcfg, jcfg, params, jrcfg = both
     mesh = jsharding.make_mesh(2)
     jmodel = jtrainer.make_model(jcfg, with_gs=True)
@@ -49,7 +54,17 @@ def test_two_rank_eval_matches_jax_mesh(both):
         weight=torch.tensor(weight), device="cpu"), tmp)
     assert ranks[0] == ranks[1]
     assert set(ranks[0]) == set(met_j)
+    model = ttrainer.make_model(tcfg, with_gs=True)
+    model.load_state_dict(torch.load(tmp / "init.pt", weights_only=True))
+    met_1, _ = ttrainer.make_eval_step(
+        model, tcfg, "stage2", ttrainer.make_raster_config(tcfg),
+        device="cpu")(fake_stereo_batch(**BATCH[1]), torch.tensor(weight))
     for k, (num, den) in ranks[0].items():
+        if "drop" in k:
+            np.testing.assert_allclose(
+                num / den, float(met_1[k][0]) / float(met_1[k][1]),
+                rtol=1e-6, err_msg=k)
+            continue
         np.testing.assert_allclose([num, den], [float(met_j[k][0]),
                                                 float(met_j[k][1])],
                                    rtol=1e-4, atol=1e-6, err_msg=k)
@@ -170,3 +185,31 @@ def test_trainer_world2_matches_world1(tmp_path):
         assert resumed.state.step == 3
     finally:
         resumed.close()
+
+
+def test_trainer_world2_val_drops_match_world1(tmp_path):
+    """At caps that bind (K 1, 8 pairs a tile, 64 foreground pixels at
+    32^2) a val drop counter is the mean drops per val batch, every row
+    counted whatever its weight: two ranks' sweep gives one process's
+    value, not half of it."""
+    cfg = tconfig.load_config(None, **dict(CFG, raster=dict(
+        max_tiles_per_gaussian=1, max_per_tile=8, fg_cap=64)))
+    train_ds = SilhouetteDataset(32, 32, 4, seed=1)
+    val_ds = SilhouetteDataset(32, 32, 3, seed=2)
+    ranks = spawn_ranks("rank_trainer", 2, dict(
+        cfg=cfg, train_ds=train_ds, val_ds=val_ds, device="cpu", steps=1,
+        exp_dir=str(tmp_path / "w2"), out=str(tmp_path / "w2.pt")),
+        tmp_path)
+    one = Trainer(cfg, exp_dir=str(tmp_path / "w1"), dataset=train_ds,
+                  val_dataset=val_ds, device="cpu")
+    try:
+        one.train(num_steps=1)
+        val_1 = one.run_eval(1)
+    finally:
+        one.close()
+    drops = [k for k in val_1 if "drop" in k]
+    assert len(drops) == 3 and all(val_1[k] > 0 for k in drops), val_1
+    assert ranks[0]["val"] == ranks[1]["val"]
+    for k, v in val_1.items():
+        np.testing.assert_allclose(ranks[0]["val"][k], v, rtol=1e-5,
+                                   atol=1e-6, err_msg=k)

@@ -1,0 +1,6 @@
+"""Share of the profiled stretch of serving frames in which no kernel,
+copy or set ran on the card, %."""
+
+
+def read(run):
+    return run.idle_pct()

@@ -11,12 +11,19 @@ process), one rank per card:
 The training tools then train data-parallel, the global batch split over
 the ranks; the test tools shard each view's tile rows over the ranks with
 `--shard_render`. Rank 0 alone writes files.
+
+Tracing: `--trace_steps lo:hi` (training) or `--trace_frames lo:hi` (the
+test tools) writes a torch.profiler trace of those steps or frames, with
+the program's spans, to `--trace_dir` (utils/profiling.py).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import logging
+from pathlib import Path
 
 
 def train_main(stage: str, default_config: str, argv=None):
@@ -37,6 +44,7 @@ def train_main(stage: str, default_config: str, argv=None):
                     help="run one val sweep at step 0 (untrained anchor)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    _trace_flags(ap, "steps", "<exp>/logs/profile")
     args = ap.parse_args(argv)
 
     logging.basicConfig(
@@ -66,7 +74,9 @@ def train_main(stage: str, default_config: str, argv=None):
     if trainer.is_main:
         save_config(cfg, str(trainer.exp_dir / "cfg.json"))
     try:
-        trainer.train(eval_first=args.eval_first)
+        trainer.train(eval_first=args.eval_first,
+                      trace_steps=args.trace_steps,
+                      trace_dir=args.trace_dir)
     finally:
         trainer.close()
     return trainer
@@ -85,7 +95,53 @@ def infer_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shard_render", action="store_true",
                     help="shard each view's tile rows over the ranks of a "
                          "torchrun launch")
+    _trace_flags(ap, "frames", "<out_dir>/profile")
     return ap
+
+
+def _window(text: str) -> tuple:
+    lo, hi = (int(x) for x in text.split(":"))
+    if not 0 <= lo < hi:
+        raise argparse.ArgumentTypeError(f"{text!r} is not lo:hi with "
+                                         "0 <= lo < hi")
+    return lo, hi
+
+
+def _trace_flags(ap: argparse.ArgumentParser, what: str, default_dir: str):
+    ap.add_argument(f"--trace_{what}", type=_window, default=None,
+                    metavar="LO:HI",
+                    help=f"write a torch.profiler trace of {what} lo to "
+                         f"hi - 1 (the program's spans on its timeline)")
+    ap.add_argument("--trace_dir", default=None,
+                    help=f"where the trace goes (default {default_dir})")
+
+
+def traced_frames(frames, args):
+    """Yield the items of `frames` (one per frame); frames lo to hi - 1 of
+    `args.trace_frames` are made under a torch.profiler trace written to
+    `args.trace_dir` (default <out_dir>/profile) as
+    trace_frames_<lo>_<hi>.json."""
+    window = args.trace_frames
+    if window is None:
+        yield from frames
+        return
+    lo, hi = window
+    where = args.trace_dir or str(Path(args.out_dir) / "profile")
+    from gps_gaussian_tpu_torch.utils.profiling import maybe_trace
+
+    end = object()
+    with contextlib.ExitStack() as trace:
+        it = iter(frames)
+        for i in itertools.count():
+            if i == lo:
+                trace.enter_context(maybe_trace(
+                    where, f"trace_frames_{lo}_{hi}.json"))
+            item = next(it, end)
+            if item is end:
+                return
+            if i + 1 == hi:
+                trace.close()
+            yield item
 
 
 def load_test_renderer(args):

@@ -6,13 +6,17 @@ test_real_data.py): every frame of a capture from one novel viewpoint.
         --ckpt_path experiments/s2/ckpt --ratio 0.5 --src_view 0 1
 
 Under `torchrun --nproc_per_node N -m ...` with `--shard_render`, each
-view's tile rows are split over the N ranks.
+view's tile rows are split over the N ranks. `--trace_frames 2:4` writes a
+torch.profiler trace of frames 2 and 3 to `--trace_dir` (default
+<out_dir>/profile).
 """
 
 import logging
 from pathlib import Path
 
-from gps_gaussian_tpu_torch.cli.common import infer_parser, load_test_renderer
+from gps_gaussian_tpu_torch.cli.common import (infer_parser,
+                                              load_test_renderer,
+                                              traced_frames)
 
 
 def main(argv=None):
@@ -27,7 +31,8 @@ def main(argv=None):
     out = Path(args.out_dir)
     if writes:
         out.mkdir(parents=True, exist_ok=True)
-    for name, img in renderer.infer_sequence(args.ratio):
+    for name, img in traced_frames(renderer.infer_sequence(args.ratio),
+                                   args):
         if writes:
             write_image(out / f"{name}_novel.jpg", img)
             logging.info("rendered %s", name)

@@ -6,13 +6,17 @@ render N novel viewpoints per frame between the two source cameras.
         --ckpt_path experiments/s2/ckpt --novel_view_nums 5 --src_view 0 1
 
 Under `torchrun --nproc_per_node N -m ...` with `--shard_render`, each
-view's tile rows are split over the N ranks.
+view's tile rows are split over the N ranks. `--trace_frames 2:4` writes a
+torch.profiler trace of frames 2 and 3 to `--trace_dir` (default
+<out_dir>/profile).
 """
 
 import logging
 from pathlib import Path
 
-from gps_gaussian_tpu_torch.cli.common import infer_parser, load_test_renderer
+from gps_gaussian_tpu_torch.cli.common import (infer_parser,
+                                              load_test_renderer,
+                                              traced_frames)
 
 
 def main(argv=None):
@@ -27,8 +31,9 @@ def main(argv=None):
     out = Path(args.out_dir)
     if writes:
         out.mkdir(parents=True, exist_ok=True)
-    for idx in range(len(dataset)):
-        images = renderer.infer_static(idx, n_views=args.novel_view_nums)
+    frames = (renderer.infer_static(idx, n_views=args.novel_view_nums)
+              for idx in range(len(dataset)))
+    for idx, images in enumerate(traced_frames(frames, args)):
         if not writes:
             continue
         name = dataset.scans[idx]

@@ -6,7 +6,9 @@
 
 Data-parallel over N cards: `torchrun --nproc_per_node N -m
 gps_gaussian_tpu_torch.cli.train_stage1 ...` (the batch size must divide
-by N).
+by N). `--trace_steps 10:12` writes a torch.profiler trace of steps 10
+and 11, with the program's spans, to `--trace_dir` (default
+<exp>/logs/profile).
 """
 
 from gps_gaussian_tpu_torch.cli.common import train_main

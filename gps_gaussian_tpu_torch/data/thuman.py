@@ -40,11 +40,16 @@ import numpy as np
 
 from gps_gaussian_tpu_torch import native
 from gps_gaussian_tpu_torch.geometry import cameras, stereo
+from gps_gaussian_tpu_torch.utils.profiling import count, span
 
 
 def _read_img(path) -> np.ndarray:
+    """An image or mask file decoded (span `read.decode`, counter
+    `read.files_decoded`)."""
     from PIL import Image
-    return np.array(Image.open(path))
+    with span("read.decode"):
+        count("read.files_decoded")
+        return np.array(Image.open(path))
 
 
 def _encode_cache(data: dict) -> dict:
@@ -169,8 +174,11 @@ class StereoHumanDataset:
         mask = _read_img(self.root / "mask" / scan / f"{vid}.png")
         if mask.ndim == 3:
             mask = mask[..., 0]
-        intr = np.load(self.root / "parm" / scan / f"{vid}_intrinsic.npy")
-        extr = np.load(self.root / "parm" / scan / f"{vid}_extrinsic.npy")
+        with span("read.decode"):
+            intr = np.load(self.root / "parm" / scan /
+                           f"{vid}_intrinsic.npy")
+            extr = np.load(self.root / "parm" / scan /
+                           f"{vid}_extrinsic.npy")
         if hr:
             intr = intr.copy()
             intr[:2] *= 2
@@ -211,14 +219,18 @@ class StereoHumanDataset:
             scan, s1, need_depth=need_flow)
         size = (img0.shape[1], img0.shape[0])
 
-        cam, map0, map1 = stereo.rectify_stereo_pair(
-            intr0, extr0, intr1, extr1, size)
+        with span("read.rectify"):
+            cam, map0, map1 = stereo.rectify_stereo_pair(
+                intr0, extr0, intr1, extr1, size)
 
         # native C++ path (threaded); numpy fallback inside if no toolchain
-        new_img0 = native.remap_bilinear(img0, *map0)
-        new_img1 = native.remap_bilinear(img1, *map1)
-        new_mask0 = native.remap_bilinear(mask0.astype(np.float32), *map0)
-        new_mask1 = native.remap_bilinear(mask1.astype(np.float32), *map1)
+        with span("read.remap"):
+            new_img0 = native.remap_bilinear(img0, *map0)
+            new_img1 = native.remap_bilinear(img1, *map1)
+            new_mask0 = native.remap_bilinear(mask0.astype(np.float32),
+                                              *map0)
+            new_mask1 = native.remap_bilinear(mask1.astype(np.float32),
+                                              *map1)
 
         out = {
             "img0": new_img0, "img1": new_img1,
@@ -298,25 +310,33 @@ class StereoHumanDataset:
     def get_test_sample(self, index: int) -> dict:
         """Online-rectified inference sample with the ORIGINAL source
         cameras kept for novel-pose interpolation (reference
-        human_loader.py:390-419)."""
+        human_loader.py:390-419). Span `read`; counter `read.files_needed`
+        counts the source images and masks that reach the sample."""
+        with span("read"):
+            return self._test_sample(index)
+
+    def _test_sample(self, index: int) -> dict:
         scan = self.scans[index % len(self.scans)]
         s0, s1 = self.cfg.source_ids
         _, _, intr0, extr0, _ = self.load_view(scan, s0, need_depth=False)
         _, _, intr1, extr1, _ = self.load_view(scan, s1, need_depth=False)
         sd = self._build_rectified(scan, need_flow=False)
         sample = {"name": scan}
-        for k, view in enumerate(("lmain", "rmain")):
-            img = sd[f"img{k}"].astype(np.float32) / 255.0
-            mask = sd[f"mask{k}"].astype(np.float32) / 255.0
-            mask_bin = (mask >= 0.5).astype(np.float32)
-            img = (2.0 * img - 1.0) * mask[..., None]
-            sample[view] = {
-                "img": img, "mask": mask_bin[..., None],
-                "intr": np.asarray(sd[f"intr{k}"], np.float32),
-                "ref_intr": np.asarray(sd[f"intr{1 - k}"], np.float32),
-                "extr": np.asarray(sd[f"extr{k}"], np.float32),
-                "tf_x": np.float32(sd["tf_x"] if k == 0 else -sd["tf_x"]),
-            }
+        count("read.files_needed", 4)   # two sources, image and mask each
+        with span("read.normalize"):
+            for k, view in enumerate(("lmain", "rmain")):
+                img = sd[f"img{k}"].astype(np.float32) / 255.0
+                mask = sd[f"mask{k}"].astype(np.float32) / 255.0
+                mask_bin = (mask >= 0.5).astype(np.float32)
+                img = (2.0 * img - 1.0) * mask[..., None]
+                sample[view] = {
+                    "img": img, "mask": mask_bin[..., None],
+                    "intr": np.asarray(sd[f"intr{k}"], np.float32),
+                    "ref_intr": np.asarray(sd[f"intr{1 - k}"], np.float32),
+                    "extr": np.asarray(sd[f"extr{k}"], np.float32),
+                    "tf_x": np.float32(sd["tf_x"] if k == 0
+                                       else -sd["tf_x"]),
+                }
         sample["intr_ori"] = (np.asarray(intr0, np.float32),
                               np.asarray(intr1, np.float32))
         sample["extr_ori"] = (np.asarray(extr0, np.float32),

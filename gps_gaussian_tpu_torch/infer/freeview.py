@@ -8,6 +8,11 @@ Counterpart of gps_gaussian_tpu/infer/freeview.py `compact_valid` :30,
 group of several ranks, every rank runs the stereo forward, takes rank 0's
 compacted Gaussians, and renders its band of tile rows
 (kernels/rasterizer/sharded.py); every rank returns the whole image.
+
+Spans (utils/profiling.py): each frame of `infer_sequence` or `infer_static`
+is a `frame` span that opens a request; inside it `frame.upload` (the
+batch to the device), `frame.compact` (compaction to fg_cap) and
+`frame.copy` (each image to host memory).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from gps_gaussian_tpu_torch.utils.containers import (FlatGaussians,
                                                      NovelCamera,
                                                      StereoSample)
 from gps_gaussian_tpu_torch.utils.device import resolve_device
+from gps_gaussian_tpu_torch.utils.profiling import device_span, span
 
 log = logging.getLogger("gps_tpu_torch.infer")
 
@@ -114,12 +120,14 @@ class FreeviewRenderer:
     @torch.inference_mode()
     def gaussians(self, batch: StereoSample) -> FlatGaussians:
         """The frame's Gaussians of both views, compacted to fg_cap rows."""
-        batch = batch.to(self.device)
+        with device_span("frame.upload", self.device):
+            batch = batch.to(self.device)
         out = self.model(batch, iters=self.cfg.raft.val_iters,
                          test_mode=True)
         gauss = out.lmain_gs.flatten().concat(out.rmain_gs.flatten())
         if self._fg_cap is not None:
-            gauss, n_dropped = compact_valid(gauss, self._fg_cap)
+            with device_span("frame.compact", self.device):
+                gauss, n_dropped = compact_valid(gauss, self._fg_cap)
             sharding.broadcast_from_rank0([n_dropped], self.group)
             self._fg_dropped += n_dropped
             if self._due(self._frames_forwarded) and int(n_dropped):
@@ -187,21 +195,27 @@ class FreeviewRenderer:
         res = self.cfg.dataset.src_res
         return res * 2 if self.cfg.dataset.use_hr_img else res
 
+    def _to_host(self, img: torch.Tensor):
+        """The first image of `img` as a (H, W, 3) numpy array in [0, 1]."""
+        with device_span("frame.copy", self.device):
+            return img[0].clamp(0, 1).cpu().numpy()
+
     def infer_static(self, index: int, n_views: int = 9) -> list:
         """One frame seen from ratios (i + 0.5) / n_views between its two
         source cameras: the stereo forward runs once, each view renders
         only. Returns n_views (H, W, 3) numpy images in [0, 1]."""
         assert self.dataset is not None
-        sample = self.dataset.get_test_sample(index)
-        gauss = self.gaussians(collate([sample]))
-        out_res = self._out_res()
-        images = []
-        for i in range(n_views):
-            cam = self.novel_camera_at(sample, (i + 0.5) / n_views, out_res,
-                                       out_res)
-            img, _ = self.render(gauss, cam)
-            images.append(img[0].clamp(0, 1).cpu().numpy())
-        self.flush_drop_report()
+        with span("frame", request=True):
+            sample = self.dataset.get_test_sample(index)
+            gauss = self.gaussians(collate([sample]))
+            out_res = self._out_res()
+            images = []
+            for i in range(n_views):
+                cam = self.novel_camera_at(sample, (i + 0.5) / n_views,
+                                           out_res, out_res)
+                img, _ = self.render(gauss, cam)
+                images.append(self._to_host(img))
+            self.flush_drop_report()
         return images
 
     def infer_sequence(self, ratio: float = 0.5):
@@ -210,11 +224,13 @@ class FreeviewRenderer:
         assert self.dataset is not None
         out_res = self._out_res()
         for idx in range(len(self.dataset)):
-            sample = self.dataset.get_test_sample(idx)
-            gauss = self.gaussians(collate([sample]))
-            cam = self.novel_camera_at(sample, ratio, out_res, out_res)
-            img, _ = self.render(gauss, cam)
-            yield sample["name"], img[0].clamp(0, 1).cpu().numpy()
+            with span("frame", request=True):
+                sample = self.dataset.get_test_sample(idx)
+                gauss = self.gaussians(collate([sample]))
+                cam = self.novel_camera_at(sample, ratio, out_res, out_res)
+                img, _ = self.render(gauss, cam)
+                img = self._to_host(img)
+            yield sample["name"], img
         self.flush_drop_report()
 
 

@@ -8,7 +8,10 @@ composite (`composite.composite`: the CUDA kernels on
 the GPU, their plain versions on the CPU). Capacities are static and every
 drop is counted in `RasterizeAux`, never silent. Gradients flow to xyz,
 rot, scale, opacity and rgb; the sort order and the tile rectangles are
-treated as fixed, and culled or invalid rows get exactly zero.
+treated as fixed, and culled or invalid rows get exactly zero. Spans
+(utils/profiling.py): `raster.project` (compaction and projection of each
+sample), `raster.sort` (binning and the pair sort, pair_sort.py) and
+`raster.composite` (the composite's forward launch).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from gps_gaussian_tpu_torch.kernels.rasterizer.reference import \
     composite_reference
 from gps_gaussian_tpu_torch.utils.containers import FlatGaussians, NovelCamera
 from gps_gaussian_tpu_torch.utils.device import resolve_device
+from gps_gaussian_tpu_torch.utils.profiling import device_span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,21 +146,25 @@ def rasterize(gaussians: FlatGaussians, camera: NovelCamera, bg_color,
     h, w = camera.height, camera.width
 
     stacked, fg_dropped = [], []
-    for b in range(gaussians.xyz.shape[0]):
-        if cfg.fg_cap is not None:
-            (xyz, rot, scale, opacity, rgb, valid), n_drop = \
-                compact_gaussian_inputs(gaussians, b, cfg.fg_cap)
-        else:
-            xyz, rot, scale, opacity, rgb, valid = (
-                gaussians.xyz[b], gaussians.rot[b], gaussians.scale[b],
-                gaussians.opacity[b], gaussians.rgb[b], gaussians.valid[b])
-            n_drop = torch.zeros((), dtype=torch.int64, device=dev)
-        projd = project_gaussians(xyz, rot, scale, opacity, rgb, valid,
-                                  camera.view[b], camera.proj[b],
-                                  camera.tanfovx[b], camera.tanfovy[b], h, w)
-        stacked.append(stack_rows(projd.mean2d, projd.conic, projd.opacity,
-                                  projd.color, projd.depth, projd.radius))
-        fg_dropped.append(n_drop)
+    with device_span("raster.project", dev):
+        for b in range(gaussians.xyz.shape[0]):
+            if cfg.fg_cap is not None:
+                (xyz, rot, scale, opacity, rgb, valid), n_drop = \
+                    compact_gaussian_inputs(gaussians, b, cfg.fg_cap)
+            else:
+                xyz, rot, scale, opacity, rgb, valid = (
+                    gaussians.xyz[b], gaussians.rot[b], gaussians.scale[b],
+                    gaussians.opacity[b], gaussians.rgb[b],
+                    gaussians.valid[b])
+                n_drop = torch.zeros((), dtype=torch.int64, device=dev)
+            projd = project_gaussians(xyz, rot, scale, opacity, rgb, valid,
+                                      camera.view[b], camera.proj[b],
+                                      camera.tanfovx[b], camera.tanfovy[b],
+                                      h, w)
+            stacked.append(stack_rows(projd.mean2d, projd.conic,
+                                      projd.opacity, projd.color,
+                                      projd.depth, projd.radius))
+            fg_dropped.append(n_drop)
     img, trans, num_dropped, num_pair_dropped = _dispatch_render(
         torch.stack(stacked), h, w, cfg, bg)
     return img, RasterizeAux(transmittance=trans, num_dropped=num_dropped,

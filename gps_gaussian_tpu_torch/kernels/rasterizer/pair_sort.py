@@ -36,6 +36,7 @@ from gps_gaussian_tpu_torch.kernels.rasterizer.compaction import \
     take_rows_unique
 from gps_gaussian_tpu_torch.kernels.rasterizer.composite import (TILE,
                                                                  composite)
+from gps_gaussian_tpu_torch.utils.profiling import device_span
 
 NPROP = 9     # kernel property columns: mx my ca cb cc op r g b
 STACKW = 11   # + depth (9) and radius (10), which feed binning only
@@ -281,7 +282,8 @@ def _composite_images(props, start, count, batch: int, height: int,
     """Composite sorted pairs: (image (B, H, W, 3) over `bg_color`,
     transmittance (B, H, W, 1))."""
     tiles_y, tiles_x = -(-height // TILE), -(-width // TILE)
-    out = composite(props, start, count, tiles_y, tiles_x)
+    with device_span("raster.composite", props.device):
+        out = composite(props, start, count, tiles_y, tiles_x)
     img_tiles = out[..., 0:3] + out[..., 3:4] * bg_color[None, None, :]
     return (untile(img_tiles, batch, height, width),
             untile(out[..., 3:4], batch, height, width))
@@ -297,9 +299,10 @@ def render_sorted(stacked, height: int, width: int, max_tiles: int,
     globally last sorted pairs (the highest batch indices' deepest tiles),
     and the drops are counted per sample either way. Differentiable with
     respect to columns 0..8 of `stacked` (`sort_pairs`, `composite`)."""
-    props, start, count, num_dropped, num_pair_dropped = sort_pairs(
-        stacked, height, width, max_tiles, max_per_tile, pair_budget,
-        depth_key)
+    with device_span("raster.sort", stacked.device):
+        props, start, count, num_dropped, num_pair_dropped = sort_pairs(
+            stacked, height, width, max_tiles, max_per_tile, pair_budget,
+            depth_key)
     return _composite_images(props, start, count, stacked.shape[0], height,
                              width, bg_color) + (num_dropped,
                                                  num_pair_dropped)
@@ -487,9 +490,10 @@ def render_sorted_staircase(stacked, height: int, width: int, span_schedule,
                             depth_key: Optional[DepthKey] = None):
     """`render_sorted` with the span-staircase expansion
     (`staircase_pairs`, :530-651). Returns what `render_sorted` returns."""
-    props, start, count, num_dropped, num_pair_dropped = staircase_pairs(
-        stacked, height, width, span_schedule, max_per_tile, pair_budget,
-        ellipse, depth_key)
+    with device_span("raster.sort", stacked.device):
+        props, start, count, num_dropped, num_pair_dropped = \
+            staircase_pairs(stacked, height, width, span_schedule,
+                            max_per_tile, pair_budget, ellipse, depth_key)
     return _composite_images(props, start, count, stacked.shape[0], height,
                              width, bg_color) + (num_dropped,
                                                  num_pair_dropped)

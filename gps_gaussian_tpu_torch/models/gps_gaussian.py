@@ -5,7 +5,8 @@ with the reference's top-level module names (img_encoder, raft_stereo,
 gs_parm_regresser). The stereo pair is stacked on the batch axis (left
 batch[:B], right batch[B:]); disparity becomes inverse depth and world
 points; background pixels stay as masked Gaussians (valid = 0). Inputs and
-outputs are NHWC; the convolutions run NCHW inside.
+outputs are NHWC; the convolutions run NCHW inside. Spans (utils/profiling.py):
+`net.encoder`, `net.stereo`, `net.gs` around the three networks.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from gps_gaussian_tpu_torch.models.gsnet import GSRegresser
 from gps_gaussian_tpu_torch.models.raft import RaftStereoHuman
 from gps_gaussian_tpu_torch.utils.containers import (GaussianMaps, SourceView,
                                                      StereoSample)
+from gps_gaussian_tpu_torch.utils.profiling import device_span
 
 
 @dataclasses.dataclass
@@ -68,9 +70,11 @@ class GPSGaussianModel(nn.Module):
         if self.compute_dtype is not None:
             image = image.to(self.compute_dtype)
 
-        img_feat = self.img_encoder(image)
-        preds = self.raft_stereo(img_feat[2], iters=iters,
-                                 test_mode=test_mode)
+        with device_span("net.encoder", image.device):
+            img_feat = self.img_encoder(image)
+        with device_span("net.stereo", image.device):
+            preds = self.raft_stereo(img_feat[2], iters=iters,
+                                     test_mode=test_mode)
         if not self.with_gs:
             return GPSGaussianOutput(flow_preds=tuple(preds))
 
@@ -87,8 +91,9 @@ class GPSGaussianModel(nn.Module):
             valids.append((inv_depth != 0.0).float())
 
         lr_depth = torch.cat(depths, dim=0).permute(0, 3, 1, 2)
-        rot, scale, opacity = self.gs_parm_regresser(
-            image, lr_depth.to(image.dtype), img_feat)
+        with device_span("net.gs", image.device):
+            rot, scale, opacity = self.gs_parm_regresser(
+                image, lr_depth.to(image.dtype), img_feat)
         rot, scale, opacity = (x.permute(0, 2, 3, 1)
                                for x in (rot, scale, opacity))
 

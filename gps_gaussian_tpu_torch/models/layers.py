@@ -19,6 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gps_gaussian_tpu_torch.utils.profiling import device_span
+
 
 class Conv(nn.Conv2d):
     """nn.Conv2d that computes in `compute_dtype` (None = input dtype)."""
@@ -37,12 +39,14 @@ class Conv(nn.Conv2d):
 
 
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm computed in f32, output cast back to the input dtype."""
+    """GroupNorm computed in f32, output cast back to the input dtype
+    (span `net.groupnorm`, the casts included)."""
 
     def forward(self, x):
-        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
-                         self.eps)
-        return y.to(x.dtype)
+        with device_span("net.groupnorm", x.device):
+            y = F.group_norm(x.float(), self.num_groups, self.weight,
+                             self.bias, self.eps)
+            return y.to(x.dtype)
 
 
 class ResidualBlock(nn.Module):

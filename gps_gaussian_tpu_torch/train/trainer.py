@@ -51,7 +51,8 @@ from gps_gaussian_tpu_torch.train.state import TrainState
 from gps_gaussian_tpu_torch.utils.containers import NovelView, StereoSample
 from gps_gaussian_tpu_torch.utils.device import resolve_device
 from gps_gaussian_tpu_torch.utils.images import write_image
-from gps_gaussian_tpu_torch.utils.profiling import StepTimer, maybe_trace
+from gps_gaussian_tpu_torch.utils.profiling import (device_span,
+                                                    maybe_trace, span)
 
 log = logging.getLogger("gps_tpu_torch.train")
 
@@ -151,7 +152,9 @@ def make_train_step(model: GPSGaussianModel, cfg: Config, stage: str,
     `mark(name)`, when given, is called after the "forward", "backward" and
     "optimizer" parts, so that a caller can time them. Metrics are detached
     scalars on the device. `train_step.loss_fn(batch) -> (loss, metrics)` is
-    the step's differentiable part alone, for checks of its gradients."""
+    the step's differentiable part alone, for checks of its gradients.
+    Spans (utils/profiling.py): `step` around the call, which opens a
+    request, and `step.loss` around the loss after the render."""
     dev = resolve_device(device)
     _check_placement(model, dev)
     bg = torch.tensor(cfg.dataset.bg_color, dtype=torch.float32, device=dev)
@@ -169,27 +172,32 @@ def make_train_step(model: GPSGaussianModel, cfg: Config, stage: str,
     def loss_fn(batch: StereoSample):
         out = apply_model(batch)
         if stage == "stage1":
-            flow_gt, valid = _stacked_flow_gt(batch)
-            return losses.sequence_loss(out.flow_preds, flow_gt, valid)
+            with device_span("step.loss", dev):
+                flow_gt, valid = _stacked_flow_gt(batch)
+                return losses.sequence_loss(out.flow_preds, flow_gt, valid)
         img_pred, raux = render_novel(out, batch.novel, bg, rcfg, device=dev)
-        img_gt = batch.novel.img
-        l1 = losses.l1_loss(img_pred, img_gt)
-        ssim_val = losses.ssim(img_pred, img_gt)
-        total = cfg.l1_weight * l1 + cfg.ssim_weight * (1.0 - ssim_val)
-        metrics = dict(l1=l1, ssim=ssim_val, **drop_metrics(raux))
-        # flow_weight 0: the flow branch leaves the step entirely, loss and
-        # metrics both; the gradient program is exactly the loss
-        if cfg.flow_weight != 0.0:
-            flow_gt, valid = _stacked_flow_gt(batch)
-            flow_loss, fmetrics = losses.sequence_loss(
-                out.flow_preds, flow_gt, valid)
-            total = total + cfg.flow_weight * flow_loss
-            metrics = dict(metrics, flow_loss=flow_loss, **fmetrics)
+        with device_span("step.loss", dev):
+            img_gt = batch.novel.img
+            l1 = losses.l1_loss(img_pred, img_gt)
+            ssim_val = losses.ssim(img_pred, img_gt)
+            total = cfg.l1_weight * l1 + cfg.ssim_weight * (1.0 - ssim_val)
+            metrics = dict(l1=l1, ssim=ssim_val, **drop_metrics(raux))
+            # flow_weight 0: the flow branch leaves the step entirely, loss
+            # and metrics both; the gradient program is exactly the loss
+            if cfg.flow_weight != 0.0:
+                flow_gt, valid = _stacked_flow_gt(batch)
+                flow_loss, fmetrics = losses.sequence_loss(
+                    out.flow_preds, flow_gt, valid)
+                total = total + cfg.flow_weight * flow_loss
+                metrics = dict(metrics, flow_loss=flow_loss, **fmetrics)
         return total, metrics
 
     def train_step(batch: StereoSample,
                    mark: Optional[Callable[[str], None]] = None) -> dict:
-        mark = mark or (lambda name: None)
+        with device_span("step", dev, request=True):
+            return _step(batch, mark or (lambda name: None))
+
+    def _step(batch: StereoSample, mark: Callable[[str], None]) -> dict:
         batch = batch.to(dev)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batch)
@@ -390,8 +398,8 @@ class Trainer:
             num_procs=cfg.dataset.num_workers, rows=self.rows)
 
         self.last_preview = None   # run_eval's first image, numpy
-        # every loss_freq steps: the running means, and the latest step's
-        # own time and wait for its batch (host clock)
+        # every loss_freq steps: the running means, and the mean step time
+        # and wait for a batch over those steps (host clock)
         self.history: list = []
         self.writer = None
         if self.is_main:
@@ -445,8 +453,7 @@ class Trainer:
         cfg = self.cfg
         total = num_steps or cfg.num_steps
         running: dict = {}
-        timer = StepTimer(cfg.batch_size, device=self.device)
-        wait = StepTimer(cfg.batch_size, device="cpu")
+        step_s = wait_s = 0.0   # host seconds over the log interval
         ckpt_dir = self.exp_dir / "ckpt"
         saved = None
         if eval_first and self.state.step == 0:
@@ -457,36 +464,40 @@ class Trainer:
                 trace.enter_context(maybe_trace(
                     trace_dir or self.exp_dir / "logs" / "profile",
                     f"trace_{trace_steps[0]}_{trace_steps[1]}.json"))
-            wait.start()
-            batch = next(self.train_loader).to(self.device)
-            wait.stop()
-            timer.start()
+            t0 = time.perf_counter()
+            with span("train.data_wait"):
+                batch = next(self.train_loader).to(self.device)
+            t1 = time.perf_counter()
             metrics = self.train_step(batch)
-            timer.stop()
+            # float() waits for the step's metrics, so the host clock
+            # covers the step
+            for k, v in metrics.items():
+                running[k] = running.get(k, 0.0) + float(v)
+            step_s += time.perf_counter() - t1
+            wait_s += t1 - t0
             if trace_steps and step + 1 == trace_steps[1]:
                 trace.close()
 
-            for k, v in metrics.items():
-                running[k] = running.get(k, 0.0) + float(v)
             if (step + 1) % cfg.record.loss_freq == 0:
                 n = cfg.record.loss_freq
                 msg = " ".join(f"{k}={v / n:.4f}"
                                for k, v in sorted(running.items()))
+                perf = {"perf/pairs_per_s": cfg.batch_size * n / step_s,
+                        "perf/step_ms": step_s * 1e3 / n,
+                        "perf/data_wait_ms": wait_s * 1e3 / n}
                 if self.is_main:
                     log.info("step %d: %s (%.2f pairs/s, %.1f ms/step, "
                              "%.1f ms waiting for data)", step + 1, msg,
-                             timer.pairs_per_s, timer.step_ms, wait.step_ms)
+                             *perf.values())
                 self._log_scalars({k: v / n for k, v in running.items()},
                                   step + 1)
-                self._log_scalars({"perf/pairs_per_s": timer.pairs_per_s,
-                                   "perf/step_ms": timer.step_ms,
-                                   "perf/data_wait_ms": wait.step_ms},
-                                  step + 1)
+                self._log_scalars(perf, step + 1)
                 self.history.append(dict(
                     {k: v / n for k, v in running.items()}, step=step + 1,
-                    step_ms=timer.last_s * 1e3,
-                    data_wait_ms=wait.last_s * 1e3))
+                    step_ms=perf["perf/step_ms"],
+                    data_wait_ms=perf["perf/data_wait_ms"]))
                 running = {}
+                step_s = wait_s = 0.0
                 saved = self._save(ckpt_dir)
             if (step + 1) % cfg.record.eval_freq == 0:
                 self.run_eval(step + 1)

@@ -207,12 +207,12 @@ def test_rasterize_reference_single_gradients_match_jax(rng):
 
 def test_maybe_trace_and_annotate(tmp_path):
     """maybe_trace(None) is a no-op; with a directory it writes a Chrome
-    trace of the block, where an annotate region shows by name."""
+    trace of the block, where a program span shows by name."""
     with profiling.maybe_trace(None):
         torch.ones(4).sum()
     assert not list(tmp_path.iterdir())
     with profiling.maybe_trace(str(tmp_path / "t"), "step.json"):
-        with profiling.annotate("gps_region"):
+        with profiling.span("gps_region"):
             torch.ones(64, 64).matmul(torch.ones(64, 64))
     text = (tmp_path / "t" / "step.json").read_text()
     assert "gps_region" in text

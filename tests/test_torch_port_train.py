@@ -25,10 +25,10 @@ from gps_gaussian_tpu.train import losses as jlosses
 from gps_gaussian_tpu.train import state as jstate
 
 from gps_gaussian_tpu_torch.models.layers import init_weights
-from gps_gaussian_tpu_torch.testing import silhouette_train_batch
+from gps_gaussian_tpu_torch.testing import (SilhouetteDataset,
+                                            silhouette_train_batch)
 from gps_gaussian_tpu_torch.train import config as tconfig
 from gps_gaussian_tpu_torch.train import losses, state as tstate, trainer
-from gps_gaussian_tpu_torch.utils.profiling import StepTimer
 
 RES = 64
 NARROW = dict(
@@ -219,10 +219,12 @@ def test_validate_group_scales_raises_on_unknown_key():
         tstate.create_state(cfg, model, device="cpu")
 
 
-def test_stage1_step_and_eval_steps_run():
+def test_stage1_step_and_eval_steps_run(tmp_path, monkeypatch):
     """Stage 1 is the same step with only the sequence loss; the eval steps
     return (numerator, denominator) pairs, and stage 1 returns the
-    point-splat preview when the batch has a novel view, else no image."""
+    point-splat preview when the batch has a novel view, else no image.
+    The Trainer logs each interval's mean step time and wait for data on
+    the host clock, with no device synchronisation of its own."""
     cfg = tconfig.load_config(None, **dict(NARROW, stage="stage1"))
     model = trainer.make_model(cfg, with_gs=False)
     init_weights(model, torch.Generator().manual_seed(1))
@@ -231,18 +233,26 @@ def test_stage1_step_and_eval_steps_run():
     step = trainer.make_train_step(model, cfg, "stage1", rcfg, state,
                                    device="cpu")
     batch = silhouette_train_batch(2, RES, RES, 0.3, seed=2)
-    timer = StepTimer(batch_size=2, device="cpu")
     marks = []
-    timer.start()
     first = step(batch, mark=marks.append)
-    timer.stop()
     second = step(batch)
     assert marks == ["forward", "backward", "optimizer"]
-    assert timer.step_ms > 0 and timer.pairs_per_s > 0
-    if not torch.cuda.is_available():
-        # like every entry point, the timer is for the GPU unless told
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            StepTimer(batch_size=2)
+
+    tcfg = tconfig.load_config(None, **dict(
+        NARROW, stage="stage1", batch_size=2,
+        dataset=dict(src_res=RES, num_workers=0),
+        record=dict(ckpt_path=str(tmp_path), loss_freq=2, eval_freq=1000)))
+    ds = SilhouetteDataset(RES, RES, 2)
+    tr = trainer.Trainer(tcfg, exp_dir=str(tmp_path / "exp"), dataset=ds,
+                         val_dataset=ds, device="cpu")
+    tr.train_loader.close()
+    tr.train_loader = (batch for _ in range(4))
+    monkeypatch.setattr(torch.cuda, "synchronize", None)   # never called
+    tr.train(4)
+    assert [row["step"] for row in tr.history] == [2, 4]
+    for row in tr.history:
+        assert row["step_ms"] > 0 and 0 <= row["data_wait_ms"] < \
+            row["step_ms"]
     assert set(first) == {"loss", "grad_norm", "train_epe", "train_1px",
                           "train_3px"}
     assert second["loss"] < first["loss"]

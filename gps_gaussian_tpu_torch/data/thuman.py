@@ -211,12 +211,14 @@ class StereoHumanDataset:
             return _decode_cache(encoded)
         return self._build_rectified(scan)
 
-    def _build_rectified(self, scan: str, need_flow: bool = True) -> dict:
+    def _build_rectified(self, scan: str) -> dict:
+        """The training/val rectification of one scan: the pair's maps
+        (span `read.rectify`), four remaps (`read.remap`) and, where the
+        scan has depth, the GT flow and validity from its remapped inverse
+        depth."""
         s0, s1 = self.cfg.source_ids
-        img0, mask0, intr0, extr0, pts0 = self.load_view(
-            scan, s0, need_depth=need_flow)
-        img1, mask1, intr1, extr1, pts1 = self.load_view(
-            scan, s1, need_depth=need_flow)
+        img0, mask0, intr0, extr0, pts0 = self.load_view(scan, s0)
+        img1, mask1, intr1, extr1, pts1 = self.load_view(scan, s1)
         size = (img0.shape[1], img0.shape[0])
 
         with span("read.rectify"):
@@ -239,7 +241,7 @@ class StereoHumanDataset:
             "extr0": cam["extr0"], "extr1": cam["extr1"],
             "tf_x": np.float32(cam["tf_x"]),
         }
-        if pts0 is None or not need_flow:
+        if pts0 is None:
             return out
 
         # GT flow from GT geometry (stereo_pts2flow equivalent)
@@ -310,35 +312,51 @@ class StereoHumanDataset:
     def get_test_sample(self, index: int) -> dict:
         """Online-rectified inference sample with the ORIGINAL source
         cameras kept for novel-pose interpolation (reference
-        human_loader.py:390-419). Span `read`; counter `read.files_needed`
-        counts the source images and masks that reach the sample."""
+        human_loader.py:390-419), read in one pass. Span `read`, and under
+        it: `read.decode` (each of the two sources' image and mask decoded
+        once, and its camera files), `read.rectify` (the camera solve,
+        `stereo.rectify_stereo_cameras`: no maps), `read.remap` (both
+        views through `native.rectify_view`, rectified, sampled and
+        normalised in one pass) and `read.normalize` (the sample's
+        assembly). Counters: `read.files_needed` (the source images and
+        masks that reach the sample), `read.views` (the views rectified)
+        and `read.views_fused` (those the native kernel made, not its
+        NumPy fallback)."""
         with span("read"):
             return self._test_sample(index)
 
     def _test_sample(self, index: int) -> dict:
         scan = self.scans[index % len(self.scans)]
         s0, s1 = self.cfg.source_ids
-        _, _, intr0, extr0, _ = self.load_view(scan, s0, need_depth=False)
-        _, _, intr1, extr1, _ = self.load_view(scan, s1, need_depth=False)
-        sd = self._build_rectified(scan, need_flow=False)
-        sample = {"name": scan}
+        img0, mask0, intr0, extr0, _ = self.load_view(scan, s0,
+                                                      need_depth=False)
+        img1, mask1, intr1, extr1, _ = self.load_view(scan, s1,
+                                                      need_depth=False)
         count("read.files_needed", 4)   # two sources, image and mask each
+        size = (img0.shape[1], img0.shape[0])
+        with span("read.rectify"):
+            cam, views = stereo.rectify_stereo_cameras(intr0, extr0, intr1,
+                                                       extr1, size)
+        with span("read.remap"):
+            rect = [native.rectify_view(img, mask, iR, K, size)
+                    for (img, mask), (iR, K) in zip(
+                        ((img0, mask0), (img1, mask1)), views)]
+        count("read.views", len(rect))
+        count("read.views_fused", sum(fused for _, _, fused in rect))
+        sample = {"name": scan}
         with span("read.normalize"):
-            for k, view in enumerate(("lmain", "rmain")):
-                img = sd[f"img{k}"].astype(np.float32) / 255.0
-                mask = sd[f"mask{k}"].astype(np.float32) / 255.0
-                mask_bin = (mask >= 0.5).astype(np.float32)
-                img = (2.0 * img - 1.0) * mask[..., None]
+            tf_x = np.float32(cam["tf_x"])
+            for k, (view, (img, mask, _)) in enumerate(
+                    zip(("lmain", "rmain"), rect)):
                 sample[view] = {
-                    "img": img, "mask": mask_bin[..., None],
-                    "intr": np.asarray(sd[f"intr{k}"], np.float32),
-                    "ref_intr": np.asarray(sd[f"intr{1 - k}"], np.float32),
-                    "extr": np.asarray(sd[f"extr{k}"], np.float32),
-                    "tf_x": np.float32(sd["tf_x"] if k == 0
-                                       else -sd["tf_x"]),
+                    "img": img, "mask": mask[..., None],
+                    "intr": np.asarray(cam[f"intr{k}"], np.float32),
+                    "ref_intr": np.asarray(cam[f"intr{1 - k}"], np.float32),
+                    "extr": np.asarray(cam[f"extr{k}"], np.float32),
+                    "tf_x": tf_x if k == 0 else -tf_x,
                 }
-        sample["intr_ori"] = (np.asarray(intr0, np.float32),
-                              np.asarray(intr1, np.float32))
-        sample["extr_ori"] = (np.asarray(extr0, np.float32),
-                              np.asarray(extr1, np.float32))
+            sample["intr_ori"] = (np.asarray(intr0, np.float32),
+                                  np.asarray(intr1, np.float32))
+            sample["extr_ori"] = (np.asarray(extr0, np.float32),
+                                  np.asarray(extr1, np.float32))
         return sample

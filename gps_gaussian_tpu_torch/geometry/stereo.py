@@ -1,7 +1,12 @@
 """Stereo rectification from scratch (replaces cv2.stereoRectify et al.).
 
 A copy of gps_gaussian_tpu/geometry/stereo.py (the port imports nothing
-from the JAX package); both give the same bits on the same inputs.
+from the JAX package); both give the same bits on the same inputs. The port
+splits the pair's camera solve (`rectify_stereo_cameras`, which online
+inference times as the span `read.rectify`) from the sampling maps
+(`rectify_map`), which only the training/val build needs: online inference
+samples each view from its `(iR, K_src)` in one native pass
+(`native.rectify_view`) and builds no map.
 
 The reference rectifies each view pair with cv2.stereoRectify +
 cv2.initUndistortRectifyMap + cv2.remap (reference lib/human_loader.py:262-283)
@@ -147,19 +152,17 @@ def stereo_rectify(K0: np.ndarray, K1: np.ndarray, image_size: tuple[int, int],
     return R0, R1, proj(cc_new[0], False), proj(cc_new[1], True)
 
 
-def init_rectify_map(K_src: np.ndarray, R: np.ndarray, P_new: np.ndarray,
-                     image_size: tuple[int, int]):
-    """Sampling maps for rectification remap (cv2.initUndistortRectifyMap).
+def rectify_map(iR: np.ndarray, K_src: np.ndarray,
+                image_size: tuple[int, int]):
+    """Sampling maps for rectification remap (cv2.initUndistortRectifyMap)
+    of one view, from iR = (K_new @ R)^-1 and its source intrinsics.
 
     For each rectified pixel (u, v): source pixel = K_src @ normalize(
-    (K_new @ R)^-1 @ [u, v, 1]).  Zero distortion path only.
+    iR @ [u, v, 1]), in f64, cast to f32.  Zero distortion path only.
 
     Returns map_x, map_y of shape (H, W) float32.
     """
     w, h = image_size
-    K_new = np.asarray(P_new, dtype=np.float64)[:3, :3]
-    iR = np.linalg.inv(K_new @ np.asarray(R, dtype=np.float64))
-
     u, v = np.meshgrid(np.arange(w, dtype=np.float64),
                        np.arange(h, dtype=np.float64))
     ones = np.ones_like(u)
@@ -234,13 +237,16 @@ def relative_pose(extr0: np.ndarray, extr1: np.ndarray):
     return E[:3, :3], E[:3, 3]
 
 
-def rectify_stereo_pair(intr0, extr0, intr1, extr1, image_size):
-    """Full rectification camera solve for one stereo pair.
+def rectify_stereo_cameras(intr0, extr0, intr1, extr1, image_size):
+    """The rectification camera solve for one stereo pair, without maps.
 
     Equivalent of reference lib/human_loader.py:245-285
-    (get_rectified_stereo_data camera math): returns the new rectified
-    intrinsics/extrinsics, the signed baseline term Tf_x, and the remap
-    grids for both views.
+    (get_rectified_stereo_data camera math). Returns the rectified camera
+    dict (intrinsics/extrinsics of both views and the signed baseline term
+    Tf_x) and, per view, `(iR, K_src)`: iR = (K_new @ R)^-1, which takes a
+    rectified pixel [u, v, 1] to its ray in the source camera, and the
+    source intrinsics, f64, from which `rectify_map` or
+    `native.rectify_view` samples the view.
     """
     intr0 = np.asarray(intr0, dtype=np.float64)
     intr1 = np.asarray(intr1, dtype=np.float64)
@@ -257,6 +263,15 @@ def rectify_stereo_pair(intr0, extr0, intr1, extr1, image_size):
         "extr1": (R1 @ extr1[:3, :]).astype(np.float32),
         "tf_x": np.float32(P1[0, 3]),
     }
-    map0 = init_rectify_map(intr0, R0, P0, image_size)
-    map1 = init_rectify_map(intr1, R1, P1, image_size)
+    views = tuple((np.linalg.inv(P[:3, :3] @ Rk), K)
+                  for P, Rk, K in ((P0, R0, intr0), (P1, R1, intr1)))
+    return camera, views
+
+
+def rectify_stereo_pair(intr0, extr0, intr1, extr1, image_size):
+    """Full rectification of one stereo pair: `rectify_stereo_cameras` and
+    the remap grids (map_x, map_y) of both views."""
+    camera, views = rectify_stereo_cameras(intr0, extr0, intr1, extr1,
+                                           image_size)
+    map0, map1 = (rectify_map(iR, K, image_size) for iR, K in views)
     return camera, map0, map1

@@ -4,12 +4,16 @@ Counterpart of gps_gaussian_tpu/native.py (`remap_bilinear` :79,
 `erode3x3` :104, `rasterize_mesh` :116 with its numpy fallback
 `_rasterize_mesh_numpy` :167) over its own copies of the sources,
 `gps_gaussian_tpu_torch/csrc/host/image_ops.cpp` and `mesh_raster.cpp`.
-This is data preparation on the host, not a device kernel. Both sources are
-compiled with g++ at first use into one library under `build/native_host/`
-at the repository root (listed in `.gitignore`), named by a hash of both
-sources and the flags, with the JAX package's flags, so both packages give
-the same bits. Every entry point has a numpy fallback, taken when no
-toolchain is present; `available()` reports which path is active.
+The port adds `rectify_view` (`csrc/host/rectify.cpp`): online inference's
+whole per-view pass from the decoded 8-bit image and mask to the network's
+input, which data/thuman.py `get_test_sample` times as the span
+`read.remap`. This is data preparation on the host, not a device kernel.
+The sources are compiled with g++ at first use into one library under
+`build/native_host/` at the repository root (listed in `.gitignore`), named
+by a hash of the sources and the flags, with the JAX package's flags, so
+both packages give the same bits. Every entry point has a numpy fallback,
+taken when no toolchain is present; `available()` reports which path is
+active.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from gps_gaussian_tpu_torch.geometry import stereo
 log = logging.getLogger("gps_tpu_torch.native")
 
 _SRC_DIR = Path(__file__).resolve().parent / "csrc" / "host"
-_SRCS = (_SRC_DIR / "image_ops.cpp", _SRC_DIR / "mesh_raster.cpp")
+_SRCS = (_SRC_DIR / "image_ops.cpp", _SRC_DIR / "mesh_raster.cpp",
+         _SRC_DIR / "rectify.cpp")
 _BUILD = Path(__file__).resolve().parents[1] / "build" / "native_host"
 _FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
           "-pthread")
@@ -59,6 +64,10 @@ def _compile() -> ctypes.CDLL:
     lib.remap_bilinear_f32.argtypes = [f32p, ci, ci, ci, f32p, f32p, ci, ci,
                                        f32p]
     lib.erode3x3_f32.argtypes = [f32p, ci, ci, f32p]
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.rectify_view_u8.argtypes = [u8p, u8p, ci, ci, ci, f64p, f64p, ci, ci,
+                                    f32p, f32p]
+    lib.rectify_view_u8.restype = None
     lib.rasterize_mesh.argtypes = [f32p, ci, i32p, ci, f32p, f32p, f32p, ci,
                                    ci, f32p, f32p, f32p, ci, cf, ci, ci,
                                    f32p, f32p, u8p, f32p]
@@ -120,6 +129,54 @@ def erode3x3(mask: np.ndarray) -> np.ndarray:
     dst = np.empty((h, w), np.float32)
     lib.erode3x3_f32(_fp(src), h, w, _fp(dst))
     return dst
+
+
+def rectify_view(img: np.ndarray, mask: np.ndarray, iR: np.ndarray,
+                 K_src: np.ndarray, size: tuple[int, int]):
+    """One source view, decoded, to the network's input in one pass.
+
+    img (H, W, C) and mask (H, W), 8-bit; `iR`, `K_src`: the view's pair
+    from `stereo.rectify_stereo_cameras`; size (w, h): the rectified view's.
+    Returns (img, mask, fused): the image rectified (bilinear, zero border,
+    rounded to 8-bit levels), scaled to [-1, 1] and multiplied by the
+    rectified mask's share of 255, (h, w, C) f32; 1 where that share is at
+    least 0.5, else 0, (h, w) f32; and whether the native kernel made them.
+    The kernel gives `_rectify_view_numpy`'s bits (maps, `remap_bilinear`,
+    the normalisation); that composition is the fallback, taken without a
+    toolchain (its remaps then NumPy's, as before the kernel) or for other
+    dtypes."""
+    lib = _get_lib()
+    if (lib is None or img.dtype != np.uint8 or mask.dtype != np.uint8
+            or img.ndim != 3):
+        return _rectify_view_numpy(img, mask, iR, K_src, size)
+    src = np.ascontiguousarray(img)
+    msk = np.ascontiguousarray(mask)
+    i_r = np.ascontiguousarray(iR, np.float64)
+    k = np.ascontiguousarray(K_src, np.float64)
+    if msk.shape != src.shape[:2] or i_r.shape != (3, 3) or k.shape != (3, 3):
+        raise ValueError(f"image {src.shape}, mask {msk.shape}, iR "
+                         f"{i_r.shape}, K_src {k.shape}")
+    h, w, c = src.shape
+    ow, oh = size
+    out_img = np.empty((oh, ow, c), np.float32)
+    out_mask = np.empty((oh, ow), np.float32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.rectify_view_u8(src.ctypes.data_as(u8p), msk.ctypes.data_as(u8p),
+                        h, w, c, i_r.ctypes.data_as(f64p),
+                        k.ctypes.data_as(f64p), oh, ow, _fp(out_img),
+                        _fp(out_mask))
+    return out_img, out_mask, True
+
+
+def _rectify_view_numpy(img, mask, iR, K_src, size):
+    """`rectify_view` as separate passes: the view's maps, the image and
+    mask remaps, then the normalisation in NumPy."""
+    map_x, map_y = stereo.rectify_map(iR, K_src, size)
+    img = remap_bilinear(img, map_x, map_y).astype(np.float32) / 255.0
+    mask = remap_bilinear(mask.astype(np.float32), map_x, map_y) / 255.0
+    mask_bin = (mask >= 0.5).astype(np.float32)
+    return (2.0 * img - 1.0) * mask[..., None], mask_bin, False
 
 
 # Directional lights, rows [direction xyz, colour rgb] (JAX native.py:134).

@@ -38,6 +38,7 @@ from gps_gaussian_tpu_torch.testing import (DelayedDataset,
                                             SynthMemoryDataset, synth_scans)
 from gps_gaussian_tpu_torch.train import config as tconfig
 from gps_gaussian_tpu_torch.train import trainer
+from gps_gaussian_tpu_torch.utils import profiling
 from gps_gaussian_tpu_torch.utils.weights import state_dict_from_flax
 
 RES = 64
@@ -126,6 +127,76 @@ def test_samples_bit_equal(tree, phase):
         assert_same(jds.get_sample(i, (2, 3, 4), np.random.default_rng(i)),
                     tds.get_sample(i, (2, 3, 4), np.random.default_rng(i)))
     assert_same(jds.get_test_sample(0), tds.get_test_sample(0))
+
+
+def _composed(img, mask, maps):
+    """The test-mode view as separate passes: remap the 8-bit image and
+    the f32 mask, then normalise (get_test_sample before the fused pass)."""
+    img = native.remap_bilinear(img, *maps).astype(np.float32) / 255.0
+    mask = native.remap_bilinear(mask.astype(np.float32), *maps) / 255.0
+    mask_bin = (mask >= 0.5).astype(np.float32)
+    return (2.0 * img - 1.0) * mask[..., None], mask_bin
+
+
+def _rectify_case(res, zoom=1.0):
+    """A seeded ring pair at res^2; `zoom` lengthens view 1's focal, so
+    its map runs off the source."""
+    rng = np.random.default_rng(res)
+    base = rng.uniform(0, 2 * np.pi)
+    i0, e0 = jsynth.ring_camera(base, res)
+    i1, e1 = jsynth.ring_camera(base + np.deg2rad(22.5), res)
+    i1 = np.array(i1, np.float64)
+    i1[:2, :2] *= zoom
+    imgs = [rng.integers(0, 256, (res, res, 3), dtype=np.uint8)
+            for _ in range(2)]
+    # masks mostly 0 or 255, with soft edges around the 0.5 threshold
+    masks = [np.where(rng.uniform(size=(res, res)) < 0.5, 0,
+                      rng.choice([255, 255, 127, 128, 129], (res, res)))
+             .astype(np.uint8) for _ in range(2)]
+    return (i0, e0, i1, e1, (res, res)), imgs, masks
+
+
+@pytest.mark.parametrize("case", ["native-64", "native-96", "native-1024",
+                                  "border-96", "fallback-64", "counters"])
+def test_rectify_view_bit_equal(case, tree, monkeypatch):
+    """`native.rectify_view` (decode to network input in one pass) against
+    the composition it replaced: `rectify_stereo_pair` maps,
+    `native.remap_bilinear`, the NumPy normalisation, bit for bit; on
+    seeded pairs, on a pose whose map runs off the source (zero border),
+    and through its NumPy fallback. `counters`: one `get_test_sample`
+    under the tracer decodes each needed file once and fuses both views."""
+    if case == "counters":
+        ds = StereoHumanDataset(_cfgs(tree, use_processed_data=False)[1],
+                                "val")
+        profiling.clear()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            ds.get_test_sample(0)
+        c = profiling.counters()
+        profiling.clear()
+        assert c["read.files_decoded"] == c["read.files_needed"] == 4
+        assert c["read.views_fused"] == c["read.views"] == 2
+        return
+    kind, res = case.split("-")
+    pair, imgs, masks = _rectify_case(int(res), 2.0 if kind == "border"
+                                      else 1.0)
+    if kind == "fallback":
+        monkeypatch.setattr(native, "_get_lib", lambda: None)
+    cam, maps0, maps1 = stereo.rectify_stereo_pair(*pair)
+    cam_s, views = stereo.rectify_stereo_cameras(*pair)
+    assert_same(cam, cam_s)
+    for img, mask, maps, (iR, K) in zip(imgs, masks, (maps0, maps1), views):
+        out_img, out_mask, fused = native.rectify_view(img, mask, iR, K,
+                                                       pair[-1])
+        assert fused == (kind != "fallback")
+        want_img, want_mask = _composed(img, mask, maps)
+        assert_same((want_img, want_mask), (out_img, out_mask))
+    if kind == "border":
+        mx, my = maps1   # every tap off the source: zero border
+        off = (mx < -1) | (mx >= mx.shape[1]) | (my < -1) | \
+            (my >= mx.shape[0])
+        assert off.mean() > 0.2
+        assert (out_mask[off] == 0).all() and (out_img[off] == 0).all()
 
 
 def test_rectified_cache_round_trip_both_ways(tree, tmp_path):

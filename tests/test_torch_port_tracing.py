@@ -199,8 +199,8 @@ def test_served_frames_are_traced(tree):
     for name in ("read.rectify", "read.remap", "read.normalize"):
         assert len(by[name]) == 2 and {r["parent"] for r in by[name]} == \
             {"read"}
-    # four load_view calls a frame: an image, a mask and the cameras each
-    assert len(by["read.decode"]) == 2 * 12
+    # two load_view calls a frame: an image, a mask and the cameras each
+    assert len(by["read.decode"]) == 2 * 6
     assert {r["parent"] for r in by["net.groupnorm"]} == {
         "net.encoder", "net.stereo", "net.gs"}
     gn = [r for r in by["net.groupnorm"] if r["request"] ==
@@ -208,7 +208,8 @@ def test_served_frames_are_traced(tree):
     assert len(gn) == sum(isinstance(m, torch.nn.GroupNorm)
                           for m in rend.model.modules())
     c = profiling.counters()
-    assert c["read.files_needed"] / c["read.files_decoded"] == 0.5
+    assert c["read.files_needed"] == c["read.files_decoded"] == 2 * 4
+    assert c["read.views_fused"] == c["read.views"] == 2 * 2
     for f in frames:
         mine = [x for x in recs if x["request"] == f["request"]]
         assert len(mine) > 40

@@ -6,8 +6,9 @@ and converted flax parameters load with `load_state_dict`.
 
 Mixed precision follows the JAX casts, not torch.autocast: parameters stay
 f32; a `Conv` with `compute_dtype` casts its input, weight and bias to that
-dtype and returns it (flax `nn.Conv(dtype=...)`); `GroupNorm32` always
-normalises in f32 and casts back to its input's dtype.
+dtype and returns it (flax `nn.Conv(dtype=...)`); every norm (`GroupNorm32`,
+and RAFT-Stereo's `InstanceNorm32` and `FrozenBatchNorm32`) normalises in
+f32 and casts back to its input's dtype.
 """
 
 from __future__ import annotations
@@ -49,21 +50,55 @@ class GroupNorm32(nn.GroupNorm):
             return y.to(x.dtype)
 
 
+class InstanceNorm32(nn.InstanceNorm2d):
+    """InstanceNorm without affine parameters (RAFT-Stereo's feature net),
+    computed in f32 and cast back (span `net.instancenorm`, the casts
+    included)."""
+
+    def forward(self, x):
+        with device_span("net.instancenorm", x.device):
+            return F.instance_norm(x.float(), eps=self.eps).to(x.dtype)
+
+
+class FrozenBatchNorm32(nn.BatchNorm2d):
+    """BatchNorm that always normalises by its running statistics, which
+    never change, in training mode too (RAFT-Stereo's `freeze_bn`); its
+    weight and bias train. Computed in f32 and cast back."""
+
+    def forward(self, x):
+        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+                         self.weight, self.bias, False, 0.0, self.eps)
+        return y.to(x.dtype)
+
+
+def make_norm(kind: str, planes: int) -> nn.Module:
+    """The norm `kind` of a `planes`-channel map: "group" (planes / 8
+    groups), "instance" or "batch" (frozen)."""
+    if kind == "group":
+        return GroupNorm32(planes // 8, planes)
+    if kind == "instance":
+        return InstanceNorm32(planes)
+    if kind == "batch":
+        return FrozenBatchNorm32(planes)
+    raise ValueError(f"unknown norm {kind!r} (expected 'group', "
+                     "'instance' or 'batch')")
+
+
 class ResidualBlock(nn.Module):
-    """conv3x3(stride)+GN+relu -> conv3x3+GN+relu, 1x1 skip when needed
-    (reference core/extractor.py:6-60, norm_fn='group')."""
+    """conv3x3(stride)+norm+relu -> conv3x3+norm+relu, 1x1 skip when
+    needed (reference core/extractor.py:6-60; `norm` as `make_norm`)."""
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 norm: str = "group"):
         super().__init__()
-        g = planes // 8
         self.conv1 = Conv(in_planes, planes, 3, stride, 1, compute_dtype)
         self.conv2 = Conv(planes, planes, 3, 1, 1, compute_dtype)
-        self.norm1 = GroupNorm32(g, planes)
-        self.norm2 = GroupNorm32(g, planes)
+        self.norm1 = make_norm(norm, planes)
+        self.norm2 = make_norm(norm, planes)
         self.downsample = None
         if stride != 1 or in_planes != planes:
-            self.norm3 = GroupNorm32(g, planes)
+            self.norm3 = make_norm(norm, planes)
             self.downsample = nn.Sequential(
                 Conv(in_planes, planes, 1, stride, 0, compute_dtype),
                 self.norm3)

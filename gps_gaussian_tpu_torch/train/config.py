@@ -7,6 +7,11 @@ standard library, anything else with PyYAML (imported only then): JSON is
 a subset of YAML, so the JAX package's `load_config` reads a `.json` recipe
 to the same Config (provided its floats carry a decimal point, which
 `save_config` sees to), and a machine without PyYAML runs from one.
+
+`RaftConfig.encoder` chooses RAFT-Stereo's own network (train/trainer.py
+`make_model`), which the JAX package does not have; `as_dict` and
+`save_config` leave it out where it holds GPS-Gaussian's value, so a
+GPS-Gaussian recipe reads the same in both packages.
 """
 
 from __future__ import annotations
@@ -20,7 +25,17 @@ from typing import Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class RaftConfig:
-    """reference config: raft.* (stereo_human_config.py:27-41)."""
+    """reference config: raft.* (stereo_human_config.py:27-41).
+
+    `encoder` "unet" is GPS-Gaussian's network (U-Net features at 1/8, one
+    GRU level of width hidden_dims[2], GroupNorm); "raftstereo" is
+    RAFT-Stereo's (its encoders of widths encoder_dims on the images, three
+    GRU levels of widths hidden_dims, finest last as upstream lists them,
+    BatchNorm in the context encoder: train_stereo.py's n_gru_layers 3 and
+    context_norm batch). `remat_encoders` (RAFT-Stereo's only) recomputes
+    its two encoders in the backward instead of keeping their activations,
+    most of them at full resolution: memory for about a twentieth more of
+    a step's operations."""
 
     mixed_precision: bool = False
     train_iters: int = 3
@@ -30,6 +45,12 @@ class RaftConfig:
     n_downsample: int = 3            # 1/8 resolution features
     encoder_dims: Tuple[int, ...] = (32, 48, 96)
     hidden_dims: Tuple[int, ...] = (96, 96, 96)
+    encoder: str = "unet"
+    remat_encoders: bool = False
+
+
+# RaftConfig's keys the JAX package's Config lacks, at GPS-Gaussian's values
+PORT_ONLY_RAFT = {"encoder": "unet", "remat_encoders": False}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,11 +192,22 @@ def load_config(path: Optional[str] = None, **overrides) -> Config:
     return cfg
 
 
+def as_dict(cfg: Config) -> dict:
+    """`cfg` as nested dicts, without the keys of PORT_ONLY_RAFT that hold
+    their GPS-Gaussian values: for a GPS-Gaussian recipe, the fields of the
+    JAX package's Config."""
+    out = dataclasses.asdict(cfg)
+    for k, v in PORT_ONLY_RAFT.items():
+        if out["raft"][k] == v:
+            del out["raft"][k]
+    return out
+
+
 def save_config(cfg: Config, path: str):
-    """Write `cfg` as JSON that PyYAML also reads to the same values: YAML
-    1.1 takes 5e-05 for a string, so an exponent gets its decimal point
-    (5.0e-05). The JAX package's save_config writes 5e-05."""
-    text = json.dumps(dataclasses.asdict(cfg), indent=1)
+    """Write `cfg` (`as_dict`) as JSON that PyYAML also reads to the same
+    values: YAML 1.1 takes 5e-05 for a string, so an exponent gets its
+    decimal point (5.0e-05). The JAX package's save_config writes 5e-05."""
+    text = json.dumps(as_dict(cfg), indent=1)
     # with indent=1 every bare number ends its line, after ': ' or indent
     text = re.sub(r"(?m)(: |^\s+)(-?\d+)(e[-+]\d+)(,?)$", r"\1\2.0\3\4",
                   text)

@@ -44,6 +44,7 @@ from gps_gaussian_tpu_torch.kernels.rasterizer import (RasterizeConfig,
                                                        rasterize)
 from gps_gaussian_tpu_torch.models.gps_gaussian import GPSGaussianModel
 from gps_gaussian_tpu_torch.models.layers import init_weights
+from gps_gaussian_tpu_torch.models.raft_stereo import RaftStereoModel
 from gps_gaussian_tpu_torch.train import losses, sharding
 from gps_gaussian_tpu_torch.train import state as state_lib
 from gps_gaussian_tpu_torch.train.config import Config
@@ -57,9 +58,42 @@ from gps_gaussian_tpu_torch.utils.profiling import (device_span,
 log = logging.getLogger("gps_tpu_torch.train")
 
 
-def make_model(cfg: Config, with_gs: bool) -> GPSGaussianModel:
-    """The model of `cfg`; under raft.mixed_precision its convolutions
-    compute in bf16 while parameters, norms, gates and heads stay f32."""
+def make_model(cfg: Config, with_gs: bool):
+    """The model of `cfg`: GPS-Gaussian, or with raft.encoder "raftstereo"
+    RAFT-Stereo (`RaftStereoModel`, stage 1 only). Under
+    raft.mixed_precision its convolutions compute in bf16 while
+    parameters, norms, gates and heads stay f32."""
+    raft = cfg.raft
+    cd = torch.bfloat16 if raft.mixed_precision else None
+    if raft.encoder == "raftstereo":
+        if with_gs:
+            raise ValueError(
+                "RAFT-Stereo (raft.encoder 'raftstereo') trains stage 1 "
+                "only: the GSRegresser needs GPS-Gaussian's U-Net features")
+        return RaftStereoModel(
+            encoder_dims=tuple(raft.encoder_dims),
+            # upstream lists the widths coarsest first; finest first here
+            hidden_dims=tuple(raft.hidden_dims[::-1]),
+            # 256 at the published widths, upstream's fixed output_dim
+            fnet_dim=2 * raft.encoder_dims[2],
+            corr_levels=raft.corr_levels, corr_radius=raft.corr_radius,
+            n_downsample=raft.n_downsample,
+            remat_encoders=raft.remat_encoders, compute_dtype=cd)
+    if raft.encoder != "unet":
+        raise ValueError(f"unknown raft.encoder {raft.encoder!r} (expected "
+                         "'unet' or 'raftstereo')")
+    # GPS-Gaussian's network is fixed at 1/8: another value would be
+    # silently ignored
+    if raft.n_downsample != 3:
+        raise ValueError(
+            f"GPS-Gaussian's network needs raft.n_downsample 3, got "
+            f"{raft.n_downsample!r}; RAFT-Stereo's own is raft.encoder "
+            "'raftstereo'")
+    if raft.remat_encoders:
+        raise ValueError(
+            "raft.remat_encoders is RAFT-Stereo's (raft.encoder "
+            "'raftstereo'); GPS-Gaussian recomputes its whole forward "
+            "with remat")
     return GPSGaussianModel(
         encoder_dims=tuple(cfg.raft.encoder_dims),
         hidden_dim=cfg.raft.hidden_dims[2],
@@ -70,7 +104,7 @@ def make_model(cfg: Config, with_gs: bool) -> GPSGaussianModel:
         gsnet_decoder_dims=tuple(cfg.gsnet.decoder_dims),
         gsnet_head_dim=cfg.gsnet.parm_head_dim,
         with_gs=with_gs,
-        compute_dtype=torch.bfloat16 if cfg.raft.mixed_precision else None)
+        compute_dtype=cd)
 
 
 def make_raster_config(cfg: Config) -> RasterizeConfig:

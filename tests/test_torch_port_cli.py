@@ -60,6 +60,10 @@ def tree(tmp_path_factory):
 
 
 def _asdict(cfg):
+    """A config's fields: the port's without its RAFT-Stereo keys, which
+    the JAX package lacks, where they hold GPS-Gaussian's values."""
+    if isinstance(cfg, tconfig.Config):
+        return tconfig.as_dict(cfg)
     return dataclasses.asdict(cfg)
 
 

@@ -87,7 +87,7 @@ def test_port_config_matches_jax_config():
 
     for path in ("stage1.yaml", "stage2.yaml"):
         path = str(REPO / "configs" / path)
-        assert dataclasses.asdict(tconfig.load_config(path)) \
+        assert tconfig.as_dict(tconfig.load_config(path)) \
             == dataclasses.asdict(jax_load(path))
 
 

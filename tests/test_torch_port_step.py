@@ -63,7 +63,7 @@ def _both_sides(flow_weight):
     over = dict(NARROW, stage="stage2", flow_weight=flow_weight)
     tcfg = tconfig.load_config(None, **over)
     jcfg = jconfig.load_config(None, **over)
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tconfig.as_dict(tcfg) == dataclasses.asdict(jcfg)
 
     model = trainer.make_model(tcfg, with_gs=True)
     init_weights(model, torch.Generator().manual_seed(7))

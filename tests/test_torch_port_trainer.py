@@ -92,7 +92,7 @@ def trainers(tmp_path_factory):
                 record=dict(ckpt_path=str(root), loss_freq=1, eval_freq=100))
     jcfg = jconfig.load_config(None, **over)
     tcfg = tconfig.load_config(None, **over)
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert dataclasses.asdict(jcfg) == tconfig.as_dict(tcfg)
     ds_cfg = DatasetConfig(data_root="", src_res=RES)
     train_ds = SynthMemoryDataset(ds_cfg, synth_scans("train", 4), "train")
     val_ds = SynthMemoryDataset(ds_cfg, synth_scans("val", 3), "val")

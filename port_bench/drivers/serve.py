@@ -12,11 +12,23 @@ at ratios (k + 0.5) / n_views. Frames are cycled in order.
 Spans (traced runs) wrap the instances this driver built: the dataset's
 `get_test_sample` (host clock, `read`), the renderer's `gaussians`
 (`forward`) and `render` (`render`) (CUDA events). The same wrappers keep
-the program's answers for the frames the seed picks for the check.
+the program's answers for the frames the seed picks for the check, each
+filed under the frame that produced it, so that a read that runs ahead of
+the card is still compared as its own frame: a sample by the index read,
+Gaussians by the order of the reads (the program forwards frames in the
+order it reads them), a render's counters by the Gaussians it was given,
+and images by the frame's name or index. A frame's answers are kept once
+its images are out; a frame read but not yet out when the window closes
+leaves its last whole pass kept.
+
+The check compares the rectified sources and the Gaussians with the
+reference's own, and every image and drop counter with the reference's
+rendering of the program's own Gaussians (`redraw`).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import sys
 import time
@@ -26,7 +38,25 @@ import torch
 
 from port_bench import harness, judge, roofline
 from port_bench.reference import pipeline, quant
+from port_bench.reference.containers import FlatGaussians
 from port_bench.traffic import frames
+
+
+def alter_region(g, field: str, share: float = 0.01):
+    """`g` (a batch-1 Gaussian container) with `share` of its valid rows
+    altered, a run of rows a third of the way in (pixel-aligned rows in a
+    row, so one region of the left view): `rgb` their colours inverted,
+    `xyz` their positions moved by 5% of the mean |position| along each
+    axis."""
+    idx = torch.nonzero(g.valid[0] > 0.5)[:, 0]
+    n = max(1, int(idx.numel() * share))
+    rows = idx[idx.numel() // 3:idx.numel() // 3 + n]
+    x = getattr(g, field).clone()
+    if field == "rgb":
+        x[0, rows] = 1.0 - x[0, rows]
+    else:
+        x[0, rows] += 0.05 * x[0, idx].abs().mean()
+    return dataclasses.replace(g, **{field: x})
 
 
 def drop_half(valid: torch.Tensor) -> torch.Tensor:
@@ -44,8 +74,9 @@ class ServeRun:
         self.cell, self.ctx = cell, ctx
         self.mix = cell.traffic
         self.recipe = cell.config["recipe"]
-        self.current = None
-        self.kept = {}
+        self.kept = {}          # checked frame: its last whole pass
+        self.passing = {}       # checked frame: the pass under way
+        self.ref_samples = {}
         self.profiled_views = []
         self.keep_views = False
 
@@ -65,6 +96,7 @@ class ServeRun:
         self.frames_dir = ctx.tmp / "frames"
         self.names = frames.write_sequence(self.frames_dir, mix, ctx.seed,
                                            ctx.device)
+        self.frame_of = {name: i for i, name in enumerate(self.names)}
         phase("frames")
         n = len(self.names)
         self.checked = sorted(int(i) for i in np.random.default_rng(
@@ -93,28 +125,30 @@ class ServeRun:
     def _wrap(self) -> None:
         spans, ds, r = self.ctx.spans, self.dataset, self.renderer
         get, gaussians, render = ds.get_test_sample, r.gaussians, r.render
+        read = collections.deque()      # frames read and not yet forwarded
 
         def get_test_sample(index):
-            self.current = index
             with spans.host("read"):
                 sample = get(index)
+            read.append(index)
             if index in self.checked:
-                self.kept[index] = {"sample": sample, "aux": [],
-                                    "images": None}
+                self.passing[index] = {"sample": sample, "aux": []}
             return sample
 
         def gaussians_(batch):
+            frame = read.popleft()
             with spans.device("forward"):
                 g = gaussians(batch)
-            if self.current in self.kept:
-                self.kept[self.current]["gauss"] = g
+            if frame in self.passing:
+                self.passing[frame]["gauss"] = g
             return g
 
         def render_(gauss, camera):
             with spans.device("render"):
                 img, aux = render(gauss, camera)
-            if self.current in self.kept:
-                self.kept[self.current]["aux"].append(aux)
+            for k in self.passing.values():
+                if k.get("gauss") is gauss:
+                    k["aux"].append(aux)
             if self.keep_views:
                 self.profiled_views.append((gauss, camera))
             return img, aux
@@ -128,13 +162,15 @@ class ServeRun:
         r = self.renderer
         while True:
             if self.mix["entry"] == "sequence":
-                outs = ([img] for _, img in r.infer_sequence(self.ratios[0]))
+                outs = ((self.frame_of[name], [img]) for name, img
+                        in r.infer_sequence(self.ratios[0]))
             else:
-                outs = (r.infer_static(i, len(self.ratios))
+                outs = ((i, r.infer_static(i, len(self.ratios)))
                         for i in range(len(self.dataset)))
-            for images in outs:
-                if self.current in self.kept:
-                    self.kept[self.current]["images"] = images
+            for frame, images in outs:
+                if frame in self.passing:
+                    self.kept[frame] = dict(self.passing.pop(frame),
+                                            images=images)
                 yield images
 
     # ------------------------------------------------------------- window
@@ -192,12 +228,41 @@ class ServeRun:
                     for im, a in zip(k["images"], k["aux"], strict=True)]})
         return out
 
+    def reference_sample(self, frame: int) -> dict:
+        """The reference's own read and rectification of `frame` (kept:
+        every answer of the reference reads the same)."""
+        if frame not in self.ref_samples:
+            self.ref_samples[frame] = pipeline.test_sample(
+                self.frames_dir, self.names[frame], self.mix["source_ids"])
+        return self.ref_samples[frame]
+
+    def reference_views(self, gauss, rs: dict) -> list:
+        """The reference's rendering of `gauss` (its container) from each
+        of the mix's ratios between the sample's source cameras."""
+        cfg, dev = self.cfg, self.ctx.device
+        rcfg = pipeline.raster_config(self.recipe)
+        hr = 2.0 if cfg.dataset.use_hr_img else 1.0
+        res = int(cfg.dataset.src_res * hr)
+        bg = torch.tensor(cfg.dataset.bg_color, dtype=torch.float32,
+                          device=dev)
+        views = []
+        for ratio in self.ratios:
+            cam = pipeline.novel_camera(rs, ratio, res, hr, cfg.dataset.znear,
+                                        cfg.dataset.zfar, dev)
+            img, drops = pipeline.render_view(gauss, cam, bg, rcfg)
+            views.append({"image": img, "drops": drops})
+        return views
+
     def reference_answers(self, control: bool = False,
-                          half_frame: bool = False) -> list:
+                          half_frame: bool = False, region: str = None,
+                          variant: str = None) -> list:
         """The reference's answers for the checked frames; `control`
-        computes them one precision lower, `half_frame` leaves out the
-        second half of each frame's valid Gaussians, the right view's (a
-        planted fault)."""
+        computes them one precision lower, `variant` is a sound variant of
+        the reference (reference/layers.py VARIANTS). Planted faults in the
+        network's output, rendered as served: `half_frame` leaves out the
+        second half of each frame's valid Gaussians, the right view's;
+        `region` ("rgb" or "xyz") alters that field of 1% of them
+        (`alter_region`)."""
         dev, cfg = self.ctx.device, self.cfg
         model = pipeline.build_model(self.recipe, True, dev)
         model.load_state_dict(pipeline.load_params(self.weights))
@@ -205,30 +270,76 @@ class ServeRun:
         if control:
             c = self.cell.config["control"]
             model.set_control(quant.KINDS[c["kind"]], c["corr"])
-        rcfg = pipeline.raster_config(self.recipe)
-        hr = 2.0 if cfg.dataset.use_hr_img else 1.0
-        res = int(cfg.dataset.src_res * hr)
-        bg = torch.tensor(cfg.dataset.bg_color, dtype=torch.float32,
-                          device=dev)
+        model.set_variant(variant)
         out = []
         for f in self.checked:
-            rs = pipeline.test_sample(self.frames_dir, self.names[f],
-                                      self.mix["source_ids"])
+            rs = self.reference_sample(f)
             g = pipeline.frame_gaussians(
                 model, pipeline.stereo_batch(rs, dev), cfg.raft.val_iters,
-                rcfg.fg_cap)
+                pipeline.raster_config(self.recipe).fg_cap)
             if half_frame:
                 g = dataclasses.replace(g, valid=drop_half(g.valid))
-            views = []
-            for ratio in self.ratios:
-                cam = pipeline.novel_camera(rs, ratio, res, hr,
-                                            cfg.dataset.znear,
-                                            cfg.dataset.zfar, dev)
-                img, drops = pipeline.render_view(g, cam, bg, rcfg)
-                views.append({"image": img, "drops": drops})
+            if region:
+                g = alter_region(g, region)
             out.append({"rect": {v: rs[v]["img"] for v in ("lmain", "rmain")},
-                        "gauss": judge.gauss_dict(g), "views": views})
+                        "gauss": judge.gauss_dict(g),
+                        "views": self.reference_views(g, rs)})
         return out
+
+    def redraw(self, answers: list) -> list:
+        """For each checked frame, the reference's rendering of the
+        answer's own Gaussians: what its images and drops are held to."""
+        out = []
+        for f, a in zip(self.checked, answers, strict=True):
+            g = FlatGaussians(**{k: a["gauss"][k][None]
+                                 for k in judge.GAUSS_FIELDS + ("valid",)})
+            out.append(self.reference_views(g, self.reference_sample(f)))
+        return out
+
+    def numbers(self, answers: list, ref: list, redrawn=None) -> dict:
+        """judge.serve_numbers of `answers` against the reference's `ref`.
+        The images are held to `redrawn`, by default `redraw(answers)`."""
+        if redrawn is None:
+            redrawn = self.redraw(answers)
+        return judge.serve_numbers(answers, ref, redrawn)
+
+    def own_numbers(self, answers: list, ref: list) -> dict:
+        """`numbers` of answers the reference made (a variant, the control,
+        a fault in the network's output): they render the Gaussians they
+        hold, so they are their own redrawing."""
+        return self.numbers(answers, ref, [a["views"] for a in answers])
+
+    def faults(self, ref: list) -> dict:
+        """The numbers of each planted fault, made in the reference's
+        answers: `altered` one pixel row of one image set to 0 where it is
+        produced, `uncounted` the pairs one view's caps dropped reported as
+        none, `altered_rect` one row of a rectified source raised by 0.5
+        where the dataset produces it, `half_frame` the right view's
+        Gaussians left out, `region_rgb` and `region_xyz` the colours or
+        positions of 1% of the Gaussians altered (`alter_region`)."""
+        plain = [f["views"] for f in ref]
+        altered = [dict(f, views=[dict(v) for v in f["views"]]) for f in ref]
+        uncounted = [dict(f, views=[dict(v) for v in f["views"]])
+                     for f in ref]
+        img = altered[0]["views"][0]["image"].copy()
+        img[img.shape[0] // 2] = 0.0
+        altered[0]["views"][0]["image"] = img
+        uncounted[0]["views"][0]["drops"] = 0
+        rect = [dict(f, rect=dict(f["rect"])) for f in ref]
+        src = rect[0]["rect"]["lmain"].copy()
+        src[src.shape[0] // 2] += 0.5
+        rect[0]["rect"]["lmain"] = src
+        return {"altered": self.numbers(altered, ref, redrawn=plain),
+                "uncounted": self.numbers(uncounted, ref, redrawn=plain),
+                "altered_rect": self.numbers(rect, ref, redrawn=plain),
+                "half_frame": self.own_numbers(
+                    self.reference_answers(half_frame=True), ref),
+                **{f"region_{f}": self.own_numbers(
+                    self.reference_answers(region=f), ref)
+                   for f in ("rgb", "xyz")}}
+
+    def details(self) -> dict:
+        return {"frames": len(self.times), "setup_s": self.setup_s}
 
     def profiled_work(self) -> dict:
         """The profiled views' composite work, counted by the reference."""
@@ -253,6 +364,9 @@ class ServeRun:
         harness.free(self.ctx.device)
 
 
+Run = ServeRun
+
+
 def run(cell: harness.Cell, ctx: harness.Ctx) -> harness.Outcome:
     s = ServeRun(cell, ctx)
     s.setup()
@@ -263,7 +377,7 @@ def run(cell: harness.Cell, ctx: harness.Ctx) -> harness.Outcome:
     prog = s.program_answers()
     counters = s.profiled_work()
     s.release()
-    numbers = judge.serve_numbers(prog, s.reference_answers())
+    numbers = s.numbers(prog, s.reference_answers())
     n = len(s.times)
     # the profiled stretch (the profiler's start and stop in it) is left
     # out of the rate the mfu reads

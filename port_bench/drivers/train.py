@@ -70,6 +70,16 @@ def program_batch(t: dict):
                         rmain=SourceView(**t["rmain"]), novel=novel)
 
 
+def first_gradients(model: torch.nn.Module, state) -> dict:
+    """Each parameter's first gradient as the optimizer got it, on the
+    host: exp_avg is (1 - beta1) * g after one step (a parameter the
+    optimizer never stepped has none: 0)."""
+    st = state.optimizer.state
+    return {k: st[p]["exp_avg"].float().cpu() / (1.0 - pipeline.BETAS[0])
+            if "exp_avg" in st.get(p, {}) else torch.zeros(p.shape)
+            for k, p in model.named_parameters()}
+
+
 def _drops(metrics: dict) -> float:
     return float(sum(metrics[k] for k in ("num_dropped", "num_fg_dropped",
                                           "num_pair_dropped")
@@ -110,20 +120,11 @@ class TrainRun:
         phase("model and batches")
         if ctx.trace and self.stage == "stage2":
             self.model.register_forward_hook(self._hook)
-        names = {id(p): k for k, p in self.model.named_parameters()}
         metrics = []
         for i in range(self.CHECKED_STEPS):
             metrics.append(self.step(self.batches[i]))
             if i == 0:
-                # the first gradient as the optimizer got it: exp_avg is
-                # (1 - beta1) * g after one step
-                # (a parameter the optimizer never stepped has none: 0)
-                st = self.state.optimizer.state
-                self.grad_norms = {
-                    names[id(p)]: torch.linalg.vector_norm(
-                        st[p]["exp_avg"]) / (1.0 - pipeline.BETAS[0])
-                    if "exp_avg" in st.get(p, {}) else torch.zeros(())
-                    for p in self.model.parameters()}
+                self.grads = first_gradients(self.model, self.state)
         self.change_norms = {
             k: torch.linalg.vector_norm(p.detach() - self.init[k])
             for k, p in self.model.named_parameters()}
@@ -186,8 +187,9 @@ class TrainRun:
 
     def program_answers(self) -> dict:
         out = {"losses": [float(m["loss"]) for m in self.first],
-               "grad_norms": {k: float(v) for k, v in
-                              self.grad_norms.items()},
+               "grads": self.grads,
+               "grad_norms": {k: float(torch.linalg.vector_norm(g))
+                              for k, g in self.grads.items()},
                "change_norms": {k: float(v) for k, v in
                                 self.change_norms.items()}}
         if self.stage == "stage2":
@@ -218,27 +220,77 @@ class TrainRun:
         self.captured = self.profiled_batches = []
         harness.free(self.ctx.device)
 
+    def reference_model(self):
+        """The reference network from the same initial weights."""
+        model = pipeline.build_model(self.recipe, self.stage == "stage2",
+                                     self.ctx.device)
+        model.load_state_dict(self.init)
+        return model
+
     def reference_answers(self, control: bool = False,
-                          half_batch: bool = False) -> dict:
+                          half_batch: bool = False, half_loss: bool = False,
+                          variant: str = None) -> dict:
         """The reference's three steps from the same weights on the same
         three batches; `control` computes them one precision lower,
-        `half_batch` leaves out the second half of every batch."""
+        `variant` is a sound variant of the reference
+        (reference/layers.py VARIANTS). Planted faults: `half_batch` leaves
+        out the second half of every batch, `half_loss` takes the loss over
+        the first half alone while the forward runs over all of it. The
+        plain reference also gives `half_grads`, its first gradient over
+        the first half of the first batch: the direction judge's
+        `grad_half` reads along."""
         dev = self.ctx.device
-        model = pipeline.build_model(self.recipe, self.stage == "stage2", dev)
-        model.load_state_dict(self.init)
+        model = self.reference_model()
         if control:
             c = self.cell.config["control"]
             model.set_control(quant.KINDS[c["kind"]], c["corr"])
+        model.set_variant(variant)
+        half = max(1, self.cell.traffic["batch"] // 2)
         batches = []
         for t in self.pool[:self.CHECKED_STEPS]:
             if half_batch:
-                t = _rows(t, slice(0, max(1, self.cell.traffic["batch"] // 2)))
+                t = _rows(t, slice(0, half))
             batches.append(pipeline.train_batch(t, dev))
-        res = pipeline.train_steps(model, batches, self.recipe, self.stage)
-        out = {k: res[k] for k in ("losses", "grad_norms", "change_norms")}
+        res = pipeline.train_steps(model, batches, self.recipe, self.stage,
+                                   loss_rows=half if half_loss else None)
+        out = {k: res[k] for k in ("losses", "grads", "grad_norms",
+                                   "change_norms")}
+        if not (control or variant or half_batch or half_loss):
+            out["half_grads"] = pipeline.first_gradient(
+                self.reference_model(),
+                pipeline.train_batch(_rows(self.pool[0], slice(0, half)),
+                                     dev), self.recipe, self.stage)
         if self.stage == "stage2":
             out["drops"] = [_drops(m) for m in res["metrics"]]
         return out
+
+    def numbers(self, answers: dict, ref: dict) -> dict:
+        """judge.train_numbers of `answers` against the reference's `ref`."""
+        return judge.train_numbers(answers, ref)
+
+    # answers the reference made (a variant, the control) are judged alike
+    own_numbers = numbers
+
+    def faults(self, ref: dict) -> dict:
+        """The numbers of each planted fault, made in the reference's
+        place: `half_batch` the second half of every batch left out, the
+        mean taken over the rest; `half_loss` the loss over the first half
+        of every batch, the forward over all of it; `unchanged` a step that
+        returns its state unchanged (1 on change_gap by definition)."""
+        unchanged = dict(ref, change_norms={k: 0.0 for k in
+                                            ref["change_norms"]})
+        return {"half_batch": self.numbers(
+                    self.reference_answers(half_batch=True), ref),
+                "half_loss": self.numbers(
+                    self.reference_answers(half_loss=True), ref),
+                "unchanged": self.numbers(unchanged, ref)}
+
+    def details(self) -> dict:
+        return {"steps": self.steps, "setup_s": self.setup_s,
+                "losses": [float(m["loss"]) for m in self.first]}
+
+
+Run = TrainRun
 
 
 def _rows(t, rows: slice):
@@ -259,7 +311,7 @@ def run(cell: harness.Cell, ctx: harness.Ctx) -> harness.Outcome:
     prog = t.program_answers()
     counters = t.profiled_work()
     t.release()
-    numbers = judge.train_numbers(prog, t.reference_answers())
+    numbers = t.numbers(prog, t.reference_answers())
     # the profiled stretch (the profiler's start and stop in it) is left
     # out of the rate the mfu reads
     n_rate, t_rate = t.steps, t.window_s

@@ -28,9 +28,9 @@ from typing import Optional
 
 import torch
 
-from port_bench import harness, judge
+from port_bench import harness
 from port_bench.drivers import train
-from port_bench.reference import pipeline, quant, raft_stereo
+from port_bench.reference import raft_stereo
 from port_bench.traffic import silhouette
 
 
@@ -135,20 +135,11 @@ class RaftStereoTrainRun(train.TrainRun):
         self.pool = silhouette.make_pool(self.cell.traffic, ctx.seed + 1, dev)
         self.batches = [train.program_batch(t) for t in self.pool]
         phase("model and batches")
-        names = {id(p): k for k, p in self.model.named_parameters()}
         metrics = []
         for i in range(self.CHECKED_STEPS):
             metrics.append(self.step(self.batches[i]))
             if i == 0:
-                # the first gradient as the optimizer got it: exp_avg is
-                # (1 - beta1) * g after one step
-                # (a parameter the optimizer never stepped has none: 0)
-                st = self.state.optimizer.state
-                self.grad_norms = {
-                    names[id(p)]: torch.linalg.vector_norm(
-                        st[p]["exp_avg"]) / (1.0 - pipeline.BETAS[0])
-                    if "exp_avg" in st.get(p, {}) else torch.zeros(())
-                    for p in self.model.parameters()}
+                self.grads = train.first_gradients(self.model, self.state)
         self.change_norms = {
             k: torch.linalg.vector_norm(p.detach() - self.init[k])
             for k, p in self.model.named_parameters()}
@@ -156,25 +147,13 @@ class RaftStereoTrainRun(train.TrainRun):
         self.setup_peak = harness.peak_bytes(dev)
         phase("first steps")
 
-    def reference_answers(self, control: bool = False,
-                          half_batch: bool = False) -> dict:
-        """The reference's three steps from the same weights on the same
-        three batches; `control` computes them one precision lower,
-        `half_batch` leaves out the second half of every batch."""
-        dev = self.ctx.device
-        model = raft_stereo.build_model(self.recipe, dev)
+    def reference_model(self):
+        model = raft_stereo.build_model(self.recipe, self.ctx.device)
         model.load_state_dict(self.init)
-        if control:
-            c = self.cell.config["control"]
-            model.set_control(quant.KINDS[c["kind"]], c["corr"])
-        batches = []
-        for t in self.pool[:self.CHECKED_STEPS]:
-            if half_batch:
-                t = train._rows(t, slice(0, max(
-                    1, self.cell.traffic["batch"] // 2)))
-            batches.append(pipeline.train_batch(t, dev))
-        res = pipeline.train_steps(model, batches, self.recipe, self.stage)
-        return {k: res[k] for k in ("losses", "grad_norms", "change_norms")}
+        return model
+
+
+Run = RaftStereoTrainRun
 
 
 def run(cell: harness.Cell, ctx: harness.Ctx) -> harness.Outcome:
@@ -185,7 +164,7 @@ def run(cell: harness.Cell, ctx: harness.Ctx) -> harness.Outcome:
              "backward": ctx.spans.device_ms("backward")}
     prog = t.program_answers()
     t.release()
-    numbers = judge.train_numbers(prog, t.reference_answers())
+    numbers = t.numbers(prog, t.reference_answers())
     # the profiled stretch is left out of the rate the mfu reads
     n_rate, t_rate = t.steps, t.window_s
     if ctx.profile is not None and ctx.profile.host_s is not None:

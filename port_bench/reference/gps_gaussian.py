@@ -22,6 +22,7 @@ from port_bench.reference.pointcloud import (flow_to_inv_depth,
                                                         inv_depth_to_points)
 from port_bench.reference.encoders import UnetExtractor
 from port_bench.reference.gsnet import GSRegresser
+from port_bench.reference import layers
 from port_bench.reference.layers import Conv
 from port_bench.reference.raft import RaftStereoHuman
 from port_bench.reference.containers import (GaussianMaps, SourceView,
@@ -71,6 +72,12 @@ class GPSGaussianModel(nn.Module):
             if isinstance(m, Conv):
                 m.quant = quant
         self.raft_stereo.corr_quant = quant if corr else None
+
+    def set_variant(self, kind: Optional[str]) -> None:
+        """layers.set_variant: a sound variant of the reference (its
+        GroupNorms reordered, or its convolutions channels-last); None
+        restores the plain reference."""
+        layers.set_variant(self, kind)
 
     def forward(self, sample: StereoSample, iters: int = 3,
                 test_mode: bool = False) -> GPSGaussianOutput:

@@ -10,6 +10,10 @@ Mixed precision follows the JAX casts, not torch.autocast: parameters stay
 f32; a `Conv` with `compute_dtype` casts its input, weight and bias to that
 dtype and returns it (flax `nn.Conv(dtype=...)`); `GroupNorm32` always
 normalises in f32 and casts back to its input's dtype.
+
+`set_variant` turns a model into a sound variant of itself: the same
+mathematics at the same precision with its f32 sums in another order, as a
+faithful rewrite of a norm or a convolution would sum them (VARIANTS).
 """
 
 from __future__ import annotations
@@ -35,22 +39,59 @@ class Conv(nn.Conv2d):
     # the control's lower precision (quant.py): applied to the input and
     # the weight in the compute dtype; None computes as configured
     quant = None
+    # the sound variant "conv_layout": input and weight channels-last, so
+    # that cuDNN runs its NHWC engines, which sum in their own order
+    channels_last = False
 
     def forward(self, x):
         dt = self.compute_dtype or x.dtype
         x, w = x.to(dt), self.weight.to(dt)
         if self.quant is not None:
             x, w = self.quant(x), self.quant(w)
+        if self.channels_last:
+            x = x.contiguous(memory_format=torch.channels_last)
+            w = w.contiguous(memory_format=torch.channels_last)
         return F.conv2d(x, w, self.bias.to(dt), self.stride, self.padding)
 
 
-class GroupNorm32(nn.GroupNorm):
-    """GroupNorm computed in f32, output cast back to the input dtype."""
+class FlipNorm:
+    """A norm with statistics whose sound variant "norm_order" normalises
+    its input flipped along the width and flips the output back: the same
+    per-element formula, the statistics summed in another order."""
+
+    flip = False
 
     def forward(self, x):
+        if self.flip:
+            return self.plain(x.flip(-1)).flip(-1)
+        return self.plain(x)
+
+
+class GroupNorm32(FlipNorm, nn.GroupNorm):
+    """GroupNorm computed in f32, output cast back to the input dtype."""
+
+    def plain(self, x):
         y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
                          self.eps)
         return y.to(x.dtype)
+
+
+VARIANTS = ("norm_order", "conv_layout")
+
+
+def set_variant(model: nn.Module, kind: Optional[str]) -> None:
+    """Make `model` the sound variant `kind` (VARIANTS): "norm_order" runs
+    every norm with statistics (FlipNorm) on its input flipped along the
+    width, "conv_layout" every convolution on channels-last tensors. None
+    restores the plain reference."""
+    if kind is not None and kind not in VARIANTS:
+        raise ValueError(f"unknown variant {kind!r} (expected one of "
+                         f"{VARIANTS})")
+    for m in model.modules():
+        if isinstance(m, Conv):
+            m.channels_last = kind == "conv_layout"
+        elif isinstance(m, FlipNorm):
+            m.flip = kind == "norm_order"
 
 
 class ResidualBlock(nn.Module):

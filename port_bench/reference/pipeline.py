@@ -229,19 +229,32 @@ def learning_rate(recipe: dict, step: int) -> float:
 
 
 def step_loss(model: GPSGaussianModel, batch: StereoSample, recipe: dict,
-              stage: str):
-    """(loss, metrics) of one training batch."""
+              stage: str, loss_rows: Optional[int] = None):
+    """(loss, metrics) of one training batch. `loss_rows` (a planted
+    fault) takes the loss over the batch's first `loss_rows` samples alone,
+    while the forward and the render run over all of them."""
     out = model(batch, iters=recipe["raft"]["train_iters"])
     flow_gt = torch.cat([batch.lmain.flow, batch.rmain.flow], dim=0)
     valid = torch.cat([batch.lmain.valid, batch.rmain.valid], dim=0)
+    preds = out.flow_preds
+    if loss_rows is not None:
+        # flow stacks the left views over the right views
+        b = batch.lmain.flow.shape[0]
+        rows = torch.cat([torch.arange(loss_rows),
+                          b + torch.arange(loss_rows)]).to(flow_gt.device)
+        preds = [p[rows] for p in preds]
+        flow_gt, valid = flow_gt[rows], valid[rows]
     if stage == "stage1":
-        return losses.sequence_loss(out.flow_preds, flow_gt, valid)
+        return losses.sequence_loss(preds, flow_gt, valid)
     bg = torch.zeros(3, dtype=torch.float32, device=flow_gt.device)
     gauss = out.lmain_gs.flatten().concat(out.rmain_gs.flatten())
     img, aux = rasterize(gauss, batch.novel.camera, bg, raster_config(recipe),
                          device=flow_gt.device)
-    l1 = losses.l1_loss(img, batch.novel.img)
-    ssim_val = losses.ssim(img, batch.novel.img)
+    target = batch.novel.img
+    if loss_rows is not None:
+        img, target = img[:loss_rows], target[:loss_rows]
+    l1 = losses.l1_loss(img, target)
+    ssim_val = losses.ssim(img, target)
     w = {k: recipe.get(k, d) for k, d in (("flow_weight", 1.0),
                                           ("l1_weight", 0.8),
                                           ("ssim_weight", 0.2))}
@@ -251,22 +264,48 @@ def step_loss(model: GPSGaussianModel, batch: StereoSample, recipe: dict,
                "num_fg_dropped": aux.num_fg_dropped.sum().float(),
                "num_pair_dropped": aux.num_pair_dropped.sum().float()}
     if w["flow_weight"] != 0.0:
-        flow_loss, fm = losses.sequence_loss(out.flow_preds, flow_gt, valid)
+        flow_loss, fm = losses.sequence_loss(preds, flow_gt, valid)
         total = total + w["flow_weight"] * flow_loss
         metrics.update(flow_loss=flow_loss, **fm)
     return total, metrics
 
 
+def _clip_coef(grads: dict, clip: float) -> torch.Tensor:
+    """The factor that clips the global norm of `grads` to `clip`."""
+    total = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads.values()]))
+    return torch.clamp_max(clip / (total + 1e-6), 1.0)
+
+
+def first_gradient(model: GPSGaussianModel, batch: StereoSample,
+                   recipe: dict, stage: str) -> dict:
+    """{name: the clipped gradient `train_steps` would take its first step
+    with on `batch`, on the host}; the model's parameters are left as they
+    were."""
+    _exact_f32()
+    model.zero_grad(set_to_none=True)
+    loss, _ = step_loss(model, batch, recipe, stage)
+    loss.backward()
+    grads = {k: p.grad for k, p in model.named_parameters()
+             if p.grad is not None}
+    coef = _clip_coef(grads, recipe.get("grad_clip", 1.0))
+    out = {k: (g * coef).float().cpu() for k, g in grads.items()}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
 def train_steps(model: GPSGaussianModel, batches: Sequence[StereoSample],
-                recipe: dict, stage: str) -> dict:
+                recipe: dict, stage: str,
+                loss_rows: Optional[int] = None) -> dict:
     """AdamW steps of `model` (in place), one per batch, as the port's
     TrainState takes them: clip the global gradient norm to
     `recipe['grad_clip']`, decoupled weight decay, bias-corrected moments,
     the schedule's rate at steps 0, 1, ...
 
-    Returns {"losses": [...], "metrics": [...], "grad_norms": {name: norm
-    of the first step's clipped gradient}, "change_norms": {name: norm of
-    the parameters' change over all the steps}}."""
+    Returns {"losses": [...], "metrics": [...], "grads": {name: the first
+    step's clipped gradient, on the host}, "grad_norms": {name: its norm},
+    "change_norms": {name: norm of the parameters' change over all the
+    steps}}. `loss_rows` is step_loss's planted fault."""
     _exact_f32()
     params = dict(model.named_parameters())
     start = {k: p.detach().clone() for k, p in params.items()}
@@ -277,12 +316,10 @@ def train_steps(model: GPSGaussianModel, batches: Sequence[StereoSample],
     out = {"losses": [], "metrics": []}
     for t, batch in enumerate(batches, start=1):
         model.zero_grad(set_to_none=True)
-        loss, metrics = step_loss(model, batch, recipe, stage)
+        loss, metrics = step_loss(model, batch, recipe, stage, loss_rows)
         loss.backward()
         grads = {k: p.grad for k, p in params.items() if p.grad is not None}
-        total = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g) for g in grads.values()]))
-        coef = torch.clamp_max(clip / (total + 1e-6), 1.0)
+        coef = _clip_coef(grads, clip)
         lr = learning_rate(recipe, t - 1)
         with torch.no_grad():
             for k, g in grads.items():
@@ -298,6 +335,8 @@ def train_steps(model: GPSGaussianModel, batches: Sequence[StereoSample],
         if t == 1:
             out["grad_norms"] = {k: float(torch.linalg.vector_norm(g * coef))
                                  for k, g in grads.items()}
+            out["grads"] = {k: (g * coef).float().cpu()
+                            for k, g in grads.items()}
         out["losses"].append(float(loss.detach()))
         out["metrics"].append({k: float(x.detach()) for k, x in
                                metrics.items()})

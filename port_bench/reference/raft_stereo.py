@@ -26,7 +26,8 @@ configuration says so: norms in f32 cast back, the correlation and its
 lookup in f32, the GRU gates in f32 after the context bias is added in the
 compute dtype, the heads' outputs and the upsampling in f32.
 `set_control` computes every convolution, and with `corr` the
-correlation's inputs, through quant.py one precision lower. A recipe's
+correlation's inputs, through quant.py one precision lower; `set_variant`
+makes it a sound variant of itself (layers.set_variant). A recipe's
 `raft.remat_encoders` has the backward run the two encoders again in
 place of their kept activations (torch.utils.checkpoint; the same values,
 in less memory).
@@ -45,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from port_bench.reference import corr as corr_ops
 from port_bench.reference import sampling
 from port_bench.reference.containers import StereoSample
+from port_bench.reference import layers
 from port_bench.reference.layers import Conv
 
 
@@ -53,9 +55,9 @@ def exact_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-class InstanceNorm32(nn.InstanceNorm2d):
-    def forward(self, x):
-        return super().forward(x.float()).to(x.dtype)
+class InstanceNorm32(layers.FlipNorm, nn.InstanceNorm2d):
+    def plain(self, x):
+        return nn.InstanceNorm2d.forward(self, x.float()).to(x.dtype)
 
 
 class BatchNorm32(nn.BatchNorm2d):
@@ -322,6 +324,12 @@ class RaftStereoModel(nn.Module):
             if isinstance(m, Conv):
                 m.quant = quant
         self.raft_stereo.corr_quant = quant if corr else None
+
+    def set_variant(self, kind: Optional[str]) -> None:
+        """layers.set_variant: a sound variant of the reference (its
+        InstanceNorms reordered, or its convolutions channels-last); None
+        restores the plain reference."""
+        layers.set_variant(self, kind)
 
     def forward(self, sample: StereoSample, iters: int = 22,
                 test_mode: bool = False) -> Output:

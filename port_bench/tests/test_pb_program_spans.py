@@ -146,7 +146,9 @@ def test_traced_run_prints_the_program_span_metrics(small_bench, cell):
     got = out["metrics"]
     assert NEW[cell] <= set(got)
     if cell == "serve-seq-1view":
-        assert got["serve.read.decode_use"]["value"] == 50.0
+        # each source file is decoded once, every view by the fused pass
+        assert got["serve.read.decode_use"]["value"] == 100.0
+        assert got["serve.read.fused_share"]["value"] == 100.0
         parts = sum(got[f"serve.read.{k}_ms"]["value"] for k in
                     ("decode", "rectify", "remap", "normalize"))
         assert parts > 0

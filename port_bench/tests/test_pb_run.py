@@ -159,7 +159,6 @@ def test_control_one_precision_lower_is_not_correct(small_bench, cell):
     """The reference one precision below the configuration's, in the
     program's place, fails the cell's committed limits."""
     from port_bench import harness, judge
-    from port_bench.drivers import serve, train
 
     bench, base = small_bench
     c = harness.load_cell(cell, bench, base)
@@ -168,18 +167,11 @@ def test_control_one_precision_lower_is_not_correct(small_bench, cell):
                           device=torch.device("cpu"), tmp=Path(tmp),
                           t0=time.perf_counter(),
                           spans=harness.Spans(False, "cpu"))
-        if c.workload["driver"] == "serve":
-            run = serve.ServeRun(c, ctx)
-            run.setup()
-            ref = run.reference_answers()
-            numbers = judge.serve_numbers(
-                run.reference_answers(control=True), ref)
-        else:
-            run = train.TrainRun(c, ctx)
-            run.setup()
-            ref = run.reference_answers()
-            numbers = judge.train_numbers(
-                run.reference_answers(control=True), ref)
+        run = harness.driver(c.workload["driver"]).Run(c, ctx)
+        run.setup()
+        ref = run.reference_answers()
+        numbers = run.own_numbers(run.reference_answers(control=True),
+                                  ref)
     checked = judge.checks(numbers, c.workload["limits"])
     assert not judge.passed(checked), json.dumps(checked)
 

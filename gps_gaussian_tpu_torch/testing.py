@@ -673,8 +673,9 @@ def _rank_entry(target: str, rank: int, world: int, init_method: str,
         dev = torch.device(payload.get("device", "cpu"))
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        else:  # the ranks share the host's cores
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        else:  # the ranks share the threads their parent may use
+            torch.set_num_threads(max(1, int(os.environ.get(
+                "OMP_NUM_THREADS") or os.cpu_count() or 1) // world))
         dist.init_process_group("gloo", init_method=init_method, rank=rank,
                                 world_size=world,
                                 timeout=datetime.timedelta(seconds=300))

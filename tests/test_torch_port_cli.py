@@ -37,6 +37,8 @@ from gps_gaussian_tpu_torch.infer.freeview import load_renderer
 from gps_gaussian_tpu_torch.train import config as tconfig
 from gps_gaussian_tpu_torch.utils.weights import state_dict_from_flax
 
+from thread_budget import thread_budget  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 RES = 64
 RUN = REPO / "runs" / "synth256" / "stage2"

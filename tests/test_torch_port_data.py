@@ -41,6 +41,8 @@ from gps_gaussian_tpu_torch.train import trainer
 from gps_gaussian_tpu_torch.utils import profiling
 from gps_gaussian_tpu_torch.utils.weights import state_dict_from_flax
 
+from thread_budget import thread_budget  # noqa: F401
+
 RES = 64
 
 

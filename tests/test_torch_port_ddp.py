@@ -33,6 +33,7 @@ from gps_gaussian_tpu_torch.train import trainer as ttrainer
 from gps_gaussian_tpu_torch.train.trainer import Trainer
 
 from test_torch_port_ddp_step import BATCH, RES, both  # noqa: F401
+from thread_budget import thread_budget  # noqa: F401
 
 def test_two_rank_eval_matches_jax_mesh(both):
     """PSNR, EPE and 1px: every (numerator, denominator) pair summed over

@@ -31,6 +31,8 @@ from gps_gaussian_tpu_torch.train import config as tconfig
 from gps_gaussian_tpu_torch.train import state as tstate, trainer
 from gps_gaussian_tpu_torch.utils.weights import state_dict_from_flax
 
+from thread_budget import thread_budget  # noqa: F401
+
 RES = 32
 NARROW = dict(
     stage="stage2", batch_size=2, num_steps=200,

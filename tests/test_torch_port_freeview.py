@@ -35,6 +35,8 @@ from gps_gaussian_tpu_torch.train import config as tconfig
 from gps_gaussian_tpu_torch.utils import containers as C
 from gps_gaussian_tpu_torch.utils.weights import state_dict_from_flax
 
+from thread_budget import thread_budget  # noqa: F401
+
 RES = 64
 CKPT = "runs/synth256/stage2"
 RASTER = dict(max_tiles_per_gaussian=16, max_per_tile=4096, fg_cap=6000,

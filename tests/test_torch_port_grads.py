@@ -58,6 +58,8 @@ from gps_gaussian_tpu_torch.utils.containers import (FlatGaussians,
                                                      NovelCamera)
 from gps_gaussian_tpu_torch.utils.weights import state_dict_from_flax
 
+from thread_budget import thread_budget  # noqa: F401
+
 RES = 48  # 3 x 3 tiles
 ROWS = ("mx", "my", "ca", "cb", "cc", "op", "r", "g", "b")
 

@@ -3,7 +3,8 @@ tests: sampling (tests/test_ops.py), the inverse-depth round trip, the
 stereo flow and the projection (tests/test_geometry.py), the rotation and
 covariance functions, and the exact rasterizer oracle
 (tests/test_rasterizer.py:154), forward and gradients. Then the tracing
-hooks, which have no numbers to compare.
+hooks, which have no numbers to compare, and the threads a port test and
+the ranks it spawns take.
 
 Tolerances: f32 on both sides, apart only in the order of sums: atol 1e-5
 for sampling, rtol 1e-6 for the geometry (elementwise on both sides, true
@@ -11,6 +12,11 @@ f32), atol 1e-6 for the rotation and covariance, atol 1e-5 for the oracle's
 image and 1e-4 of each input's largest gradient (JAX's own binned-vs-oracle
 check is 1e-4 and 2e-4).
 """
+
+import os
+import queue
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +31,7 @@ from gps_gaussian_tpu.kernels.rasterizer import \
 from gps_gaussian_tpu.kernels.rasterizer import preprocess as jpre
 from gps_gaussian_tpu.ops import sampling as jsamp
 
+from gps_gaussian_tpu_torch import testing
 from gps_gaussian_tpu_torch.geometry import pointcloud as tpc
 from gps_gaussian_tpu_torch.kernels.rasterizer import (
     RasterizeConfig, rasterize_reference_single, rasterize_single)
@@ -34,6 +41,7 @@ from gps_gaussian_tpu_torch.utils import profiling
 
 from test_geometry import _random_cam
 from test_rasterizer import RES, _camera, _scene
+from thread_budget import thread_budget  # noqa: F401
 
 
 def _t(a):
@@ -216,3 +224,41 @@ def test_maybe_trace_and_annotate(tmp_path):
             torch.ones(64, 64).matmul(torch.ones(64, 64))
     text = (tmp_path / "t" / "step.json").read_text()
     assert "gps_region" in text
+
+
+def test_torch_runs_on_the_worker_share_of_the_cores(thread_budget):
+    """Under pytest-xdist a port test module runs torch on its worker's
+    share of the cores, and a subprocess it starts inherits the share."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    share = max(1, len(os.sched_getaffinity(0)) // workers)
+    assert thread_budget == share == torch.get_num_threads()
+    assert os.environ["OMP_NUM_THREADS"] == str(share)
+    assert os.environ["MKL_NUM_THREADS"] == str(share)
+    child = subprocess.run(
+        [sys.executable, "-c", "import torch; print(torch.get_num_threads())"],
+        capture_output=True, text=True, timeout=120, check=True)
+    assert int(child.stdout) == share
+
+
+@pytest.mark.parametrize("omp", ["2", None])
+def test_spawned_cpu_rank_takes_its_share_of_the_threads(omp, monkeypatch):
+    """A CPU rank sets torch's threads before it joins its group: the
+    OMP_NUM_THREADS it inherits, or the host's cores where that is unset,
+    divided by the world size."""
+    def stop(*args, **kwargs):
+        raise RuntimeError("stopped before the group")
+
+    monkeypatch.setattr(testing.dist, "init_process_group", stop)
+    if omp is None:
+        monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
+    else:
+        monkeypatch.setenv("OMP_NUM_THREADS", omp)
+    threads, out_q = torch.get_num_threads(), queue.Queue()
+    try:
+        testing._rank_entry("rank_eval", 1, 2, "file:///unused", {}, out_q)
+        assert torch.get_num_threads() == max(
+            1, int(omp or os.cpu_count()) // 2)
+    finally:
+        torch.set_num_threads(threads)
+    rank, ok, out = out_q.get_nowait()
+    assert (rank, ok) == (1, False) and "stopped before the group" in out

@@ -20,6 +20,8 @@ import torch
 from gps_gaussian_tpu_torch.kernels.rasterizer.composite import (
     composite_bwd_plain, composite_fwd_plain, cull_rows_plain)
 
+from thread_budget import thread_budget  # noqa: F401
+
 ALPHA_MIN, ALPHA_MAX, T_EPS = 1.0 / 255.0, 0.99, 1e-4
 SHAPES = [(16, 2), (8, 4)]
 

@@ -46,6 +46,8 @@ from gps_gaussian_tpu_torch.train.trainer import render_novel
 from gps_gaussian_tpu_torch.utils.containers import NovelView
 from gps_gaussian_tpu_torch.utils.weights import state_dict_from_flax
 
+from thread_budget import thread_budget  # noqa: F401
+
 ENC, HID, GS_ENC, GS_DEC, HEAD = (16, 24, 32), 32, (16, 24, 32), \
     (24, 32, 32), 16
 RES = 64

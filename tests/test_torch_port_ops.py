@@ -20,6 +20,8 @@ from gps_gaussian_tpu_torch.geometry import pointcloud as tpc
 from gps_gaussian_tpu_torch.ops import corr as tcorr
 from gps_gaussian_tpu_torch.ops import sampling as tsamp
 
+from thread_budget import thread_budget  # noqa: F401
+
 ATOL = 1e-5
 
 

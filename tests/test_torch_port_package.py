@@ -18,6 +18,8 @@ import torch
 import gps_gaussian_tpu_torch
 from gps_gaussian_tpu_torch.train import config as tconfig
 
+from thread_budget import thread_budget  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "gps_gaussian_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "gps_gaussian_tpu")

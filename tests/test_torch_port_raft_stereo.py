@@ -51,6 +51,8 @@ from gps_gaussian_tpu_torch.train import losses, trainer
 from gps_gaussian_tpu_torch.train.state import create_state
 from gps_gaussian_tpu_torch.utils import profiling
 
+from thread_budget import thread_budget  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 YAML = REPO / "configs" / "raftstereo_stage1.yaml"
 ENC, HIDDEN, RES, ITERS = (16, 24, 32), (16, 24, 32), 64, 3

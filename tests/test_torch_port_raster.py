@@ -37,6 +37,8 @@ from gps_gaussian_tpu_torch.kernels.rasterizer.reference import \
 from gps_gaussian_tpu_torch.utils.containers import (FlatGaussians,
                                                      NovelCamera)
 
+from thread_budget import thread_budget  # noqa: F401
+
 RES = 48  # 3 x 3 tiles
 
 

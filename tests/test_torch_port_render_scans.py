@@ -31,6 +31,7 @@ from gps_gaussian_tpu_torch.testing import humanoid_mesh, write_scan
 
 from test_native import _camera, _icosphere
 from test_torch_port_data import assert_same
+from thread_budget import thread_budget  # noqa: F401
 
 
 def _textured(n=8, r=0.4, center=(0, 0, 0), seed=0):

@@ -32,6 +32,8 @@ from gps_gaussian_tpu_torch.kernels.rasterizer.sharded import (
 from gps_gaussian_tpu_torch.testing import spawn_ranks
 from gps_gaussian_tpu_torch.utils.containers import FlatGaussians
 
+from thread_budget import thread_budget  # noqa: F401
+
 NAMES = ("xyz", "rgb", "rot", "scale", "opacity", "valid")
 COUNTERS = ("num_dropped", "num_fg_dropped", "num_pair_dropped")
 

@@ -4,6 +4,7 @@ test_torch_port_sharded.py's; the JAX side compiles for ~35 s, so each
 world has a file of its own)."""
 
 from test_torch_port_sharded import check_bands_match_jax
+from thread_budget import thread_budget  # noqa: F401
 
 
 def test_bands_match_jax_sharded_8(rng):

@@ -29,6 +29,8 @@ from gps_gaussian_tpu_torch.kernels.rasterizer.pair_sort import (
 from gps_gaussian_tpu_torch.kernels.rasterizer.preprocess import \
     project_gaussians
 
+from thread_budget import thread_budget  # noqa: F401
+
 BASE = dict(fg_cap=320, max_per_tile=512, pair_budget=4096)
 GRAD_NAMES = ("xyz", "rot", "scale", "opacity", "rgb")
 SCHEDULES = {

@@ -76,6 +76,22 @@ def _both_sides(flow_weight):
     return tcfg, model, batch, jcfg, jmodel, params, jrcfg, _jax_batch(batch)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """The tolerances below were set with torch on 8 threads, so this file
+    runs there, not on a test worker's share of the cores
+    (tests/thread_budget.py). Torch's CPU convolutions sum in an
+    order that follows the thread count: at 1, 2 or 4 threads one GroupNorm
+    output of the Gaussian head's decoder (decoder2.1.norm2, about 2e-6)
+    lands on the other side of its ReLU than at 3, 6 or 8 threads and in
+    the JAX forward, and that one element moves the head's weight gradients
+    by up to 1.8e-2 of their scale at flow_weight 0."""
+    budget = torch.get_num_threads()
+    torch.set_num_threads(8)
+    yield
+    torch.set_num_threads(budget)
+
+
 def _flat(tree):
     return state_dict_from_flax(jax.tree_util.tree_map(np.asarray, tree))
 

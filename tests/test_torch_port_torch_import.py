@@ -32,6 +32,7 @@ from gps_gaussian_tpu_torch.utils.weights import state_dict_from_flax
 
 from test_torch_port_models import (ENC, GS_DEC, GS_ENC, HEAD, HID,
                                     _compare_model, _run_both)
+from thread_budget import thread_budget  # noqa: F401
 
 GS = "gs_parm_regresser."
 

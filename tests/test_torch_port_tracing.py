@@ -29,6 +29,8 @@ from gps_gaussian_tpu_torch.train import state as tstate
 from gps_gaussian_tpu_torch.train import trainer
 from gps_gaussian_tpu_torch.utils import profiling
 
+from thread_budget import thread_budget  # noqa: F401
+
 RES = 64
 TINY = dict(
     batch_size=1,

@@ -30,6 +30,8 @@ from gps_gaussian_tpu_torch.testing import (SilhouetteDataset,
 from gps_gaussian_tpu_torch.train import config as tconfig
 from gps_gaussian_tpu_torch.train import losses, state as tstate, trainer
 
+from thread_budget import thread_budget  # noqa: F401
+
 RES = 64
 NARROW = dict(
     raft=dict(encoder_dims=[16, 24, 32], hidden_dims=[32, 32, 32]),

@@ -29,6 +29,8 @@ from gps_gaussian_tpu_torch.train import config as tconfig
 from gps_gaussian_tpu_torch.train import trainer
 from gps_gaussian_tpu_torch.utils.weights import state_dict_from_flax
 
+from thread_budget import thread_budget  # noqa: F401
+
 RES = 64
 NARROW = dict(
     batch_size=2, num_steps=2,

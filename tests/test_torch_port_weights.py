@@ -21,6 +21,8 @@ from gps_gaussian_tpu_torch.models.gps_gaussian import \
 from gps_gaussian_tpu_torch.models.layers import init_weights
 from gps_gaussian_tpu_torch.utils.weights import state_dict_from_flax
 
+from thread_budget import thread_budget  # noqa: F401
+
 DIMS = dict(encoder_dims=(16, 24, 32), hidden_dim=32, context_dim=32,
             gsnet_encoder_dims=(16, 24, 32), gsnet_decoder_dims=(24, 32, 32),
             gsnet_head_dim=16)
